@@ -6,10 +6,13 @@ find; the JAX package stays the reference the port is tested against.
 Layers (bottom-up):
   kernels/   hand-written CUDA kernels (csrc/), their builder and wrappers,
              and the plain PyTorch version of each
-  ops/       embedding gather, layers, entmax dispatch, ARM interaction
+  ops/       embedding gather, layers, entmax dispatch, ARM interaction,
+             each differentiable (autograd Functions over the kernels)
   models/    armnet_1h (the other zoo names are not ported yet)
-  data/      libsvm parse and fixed-shape eval batches
-  train/     checkpoint save/load, metrics
+  data/      libsvm parse, fixed-shape batches, the shuffled train iterator
+  train/     losses and metrics, the train/eval step, the epoch loop with
+             early stopping, checkpoints, and the training CLI
+             (python -m armnet_tpu_torch.train)
   predict    batch scoring of a libsvm file from a checkpoint
 
 Entry points run on the card unless the caller asks for the CPU; kernel

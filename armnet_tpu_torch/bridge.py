@@ -11,6 +11,9 @@
 Every other leaf (bilinear_w, query, values, ens_kernel, ...) keeps its
 name and layout. Raises on a JAX leaf it does not consume and on a port
 parameter or buffer it does not fill.
+
+`params_from_jax` carries a tree shaped like `params` alone (gradients,
+Adam moments) to a {port parameter name: tensor} dict with the same renames.
 """
 
 import numpy as np
@@ -18,7 +21,7 @@ import torch
 
 from armnet_tpu_torch.models import create_model
 
-__all__ = ["from_jax_arrays", "flatten_flax"]
+__all__ = ["from_jax_arrays", "params_from_jax", "flatten_flax"]
 
 _LEAF = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
@@ -57,9 +60,7 @@ def _port_key(jax_key):
     return ".".join(path + [_LEAF.get(leaf, leaf)]), "copy"
 
 
-def from_jax_arrays(flat, cfg):
-    """Port state_dict for the model `cfg` describes, filled from `flat`."""
-    expected = create_model(cfg).state_dict()
+def _convert(flat, cfg, expected):
     out = {}
     for jax_key, arr in flat.items():
         key, kind = _port_key(jax_key)
@@ -82,3 +83,17 @@ def from_jax_arrays(flat, cfg):
         raise KeyError(f"port parameters/buffers not filled by the JAX tree: "
                        f"{missing}")
     return out
+
+
+def from_jax_arrays(flat, cfg):
+    """Port state_dict for the model `cfg` describes, filled from `flat`."""
+    return _convert(flat, cfg, create_model(cfg).state_dict())
+
+
+def params_from_jax(tree, cfg):
+    """{port parameter name: tensor} from a params-shaped JAX tree (nested
+    or flattened without the 'params/' collection): gradients or Adam
+    moments, for comparison key by key."""
+    return _convert({f"params/{k}": v for k, v in flatten_flax(tree).items()},
+                    cfg,
+                    dict(create_model(cfg).named_parameters()))

@@ -1,21 +1,29 @@
-"""libsvm parse and fixed-shape eval batches (port of the numpy paths of
+"""libsvm parse and fixed-shape batches (port of the numpy paths of
 armnet_tpu/data/libsvm.py).
 
 Batch schema (unchanged): {'id' [B,F] int32, 'value' [B,F] f32, 'y' [B] f32,
 'mask' [B] f32} as CPU tensors; the caller copies them to its device. The
 final partial batch is padded to B with rows of id 0, value 1.0 and mask 0:
 value 1.0, not 0.0, keeps a pad row in-distribution for the models that clamp
-values into [1e-3, 1], and mask 0 keeps it out of every metric.
+values into [1e-3, 1], and mask 0 keeps it out of every metric and of the
+BatchNorm statistics.
+
+A shuffled iterator permutes the rows with RandomState(seed + epoch) and
+advances `epoch` each time an iteration starts, as the JAX iterator does, so
+both packages visit the rows in the same order.
 
 Not ported: the native C++ parser and the on-disk row cache (ROADMAP.md).
 """
 
+import glob
+import os
 import warnings
 
 import numpy as np
 import torch
 
-__all__ = ["parse_libsvm", "LibsvmDataset", "BatchIterator"]
+__all__ = ["parse_libsvm", "LibsvmDataset", "BatchIterator",
+           "make_dataloaders"]
 
 
 def _parse_numpy_fast(path, nfield):
@@ -98,21 +106,29 @@ class LibsvmDataset:
 
 
 class BatchIterator:
-    """Fixed-shape eval batches in input order (no shuffle)."""
+    """Fixed-shape batches, in input order or shuffled per epoch."""
 
-    def __init__(self, dataset, batch_size):
+    def __init__(self, dataset, batch_size, shuffle=False, seed=0):
         self.ds = dataset
         self.bsz = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
 
     def __len__(self):
         return (len(self.ds) + self.bsz - 1) // self.bsz
 
-    def _batch(self, lo):
-        hi = min(lo + self.bsz, len(self.ds))
-        n, pad = hi - lo, self.bsz - (hi - lo)
-        ids = self.ds.ids[lo:hi]
-        values = self.ds.values[lo:hi]
-        y = self.ds.labels[lo:hi]
+    def _order(self):
+        n = len(self.ds)
+        if self.shuffle:
+            return np.random.RandomState(self.seed + self.epoch).permutation(n)
+        return np.arange(n)
+
+    def _batch(self, take):
+        n, pad = take.shape[0], self.bsz - take.shape[0]
+        ids = self.ds.ids[take]
+        values = self.ds.values[take]
+        y = self.ds.labels[take]
         mask = np.ones((self.bsz,), np.float32)
         if pad:
             ids = np.concatenate(
@@ -127,5 +143,27 @@ class BatchIterator:
                 "mask": torch.from_numpy(mask)}
 
     def __iter__(self):
+        order = self._order()
+        self.epoch += 1
         for b in range(len(self)):
-            yield self._batch(b * self.bsz)
+            yield self._batch(order[b * self.bsz:(b + 1) * self.bsz])
+
+
+def make_dataloaders(dataset, data_dir, nfield, batch_size, seed=0):
+    """Iterators over {data_dir}/{dataset}/tr*|va*|te*libsvm: the train split
+    shuffled, valid and test in input order."""
+    base = os.path.join(data_dir, dataset)
+
+    def pick(prefix):
+        matches = sorted(glob.glob(os.path.join(base, f"{prefix}*libsvm")))
+        if not matches:
+            raise FileNotFoundError(
+                f"no {prefix}*libsvm under {base} (expected the tr/va/te "
+                f"naming convention)")
+        return matches[0]
+
+    train, val, test = (LibsvmDataset(pick(p), nfield)
+                        for p in ("tr", "va", "te"))
+    return (BatchIterator(train, batch_size, True, seed),
+            BatchIterator(val, batch_size, False, seed),
+            BatchIterator(test, batch_size, False, seed))

@@ -15,12 +15,17 @@ budgets (its environment-variable knobs are not carried over):
 
 The CUDA kernel (csrc/entmax.cu) repeats this arithmetic operation for
 operation; `solver_mode` is the one place both read the branch from.
+
+The backward (`entmax_bwd_axis0`, the plain version of the CUDA backward
+kernel) needs only the output y: g = y^(2-alpha) on the support (y > 0),
+dx = dy*g - (sum(dy*g) / sum(g)) * g.
 """
 
 import torch
 
-__all__ = ["pow_inv", "solve_entmax_axis0", "solver_mode", "bisect_steps",
-           "N_BISECT", "N_NEWTON", "N_FAST", "N_POLISH"]
+__all__ = ["pow_inv", "pow_static", "solve_entmax_axis0", "entmax_bwd_axis0",
+           "solver_mode", "bisect_steps", "N_BISECT", "N_NEWTON", "N_FAST",
+           "N_POLISH"]
 
 N_BISECT = 8
 N_NEWTON = 6
@@ -57,6 +62,17 @@ def pow_inv(z, inv_am1):
     if inv_am1 == 3.0:
         return z * z * z
     return torch.pow(z, inv_am1)
+
+
+def pow_static(y, e):
+    """y ** e for y >= 0 with static-exponent specialization (backward)."""
+    if e == 0.0:                # alpha = 2
+        return torch.ones_like(y)
+    if e == 0.5:                # alpha = 1.5
+        return torch.sqrt(y)
+    if e == 1.0:
+        return y
+    return torch.pow(torch.clamp_min(y, 1e-38), e)
 
 
 def _fast_pow(z, inv_am1):
@@ -132,3 +148,13 @@ def solve_entmax_axis0(x, alpha, n_iter=50):
         tau = torch.where(inside, t_n, 0.5 * (tau_lo + tau_hi))
     p = pow_inv(x - tau, inv_am1)
     return p / p.sum(0, keepdim=True)
+
+
+def entmax_bwd_axis0(y, dy, alpha):
+    """Vector-Jacobian product of alpha-entmax over axis 0, from its output
+    y and the output cotangent dy. A NaN column of y (y > 0 is false for
+    NaN) gives a NaN column of dx through 0/0."""
+    g = torch.where(y > 0, pow_static(y, 2.0 - alpha), 0.0)
+    dx = dy * g
+    q = dx.sum(0, keepdim=True) / g.sum(0, keepdim=True)
+    return dx - q * g

@@ -1,14 +1,20 @@
 """Shared layers (port of the armnet_1h subset of armnet_tpu/ops/layers.py).
 
   TorchLinear   nn.Linear with its default init, from a torch.Generator
-  BatchNorm     torch BatchNorm in eval mode over a given channel axis
+  BatchNorm     torch BatchNorm over a given channel axis; in train mode
+                with masked batch statistics under batch_mask_scope
+  Dropout       inverted dropout whose mask comes from the generator of
+                the active dropout_scope
   Embedding     value-scaled embedding gather -> [B, F, E]
   MLP           [Linear -> BatchNorm -> ReLU -> Dropout] * L -> Linear
 
 Parameters are created on the generator's device; move the model with
-`.to(device)` afterwards. Masked train-mode BatchNorm statistics (the JAX
-package's batch_mask_scope) come with the training slice (ROADMAP.md).
+`.to(device)` afterwards.
 """
+
+import math
+import threading
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -17,7 +23,42 @@ from torch import nn
 from armnet_tpu_torch.ops import initializers as init
 from armnet_tpu_torch.ops.embedding import embedding_bag
 
-__all__ = ["TorchLinear", "BatchNorm", "Embedding", "MLP"]
+__all__ = ["TorchLinear", "BatchNorm", "Dropout", "Embedding", "MLP",
+           "batch_mask_scope", "current_batch_mask", "dropout_scope"]
+
+# The train step enters batch_mask_scope around the forward so BatchNorm
+# computes MASKED batch statistics: the loader pads the final partial batch
+# to B with mask-0 rows, and statistics over the pad rows would drift the
+# running averages that eval uses (the JAX package's r5 finding; the torch
+# reference's last batch is genuinely small). dropout_scope hands Dropout
+# the step's torch.Generator the same way.
+_scope = threading.local()
+
+
+@contextmanager
+def batch_mask_scope(mask):
+    """Expose the batch validity mask [B] to BatchNorm during a forward."""
+    prev = getattr(_scope, "mask", None)
+    _scope.mask = mask
+    try:
+        yield
+    finally:
+        _scope.mask = prev
+
+
+def current_batch_mask():
+    return getattr(_scope, "mask", None)
+
+
+@contextmanager
+def dropout_scope(generator):
+    """Draw every dropout mask of a forward from `generator`."""
+    prev = getattr(_scope, "generator", None)
+    _scope.generator = generator
+    try:
+        yield
+    finally:
+        _scope.generator = prev
 
 
 class TorchLinear(nn.Module):
@@ -35,8 +76,16 @@ class TorchLinear(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm with torch defaults (eps 1e-5) that normalizes over every
-    axis but `channel_axis`, in eval mode: running mean and variance."""
+    """BatchNorm with torch defaults (eps 1e-5, momentum 0.1, i.e. keep 0.9
+    of the running average) that normalizes over every axis but
+    `channel_axis`. Eval mode uses the running mean and variance. Train
+    mode normalizes by the batch's mean and biased variance and folds the
+    UNBIASED variance (x n/(n-1)) into the running average, as torch does;
+    inside batch_mask_scope both statistics take the real rows only (n =
+    real rows x the other reduced axes), and an input that is not
+    batch-led raises."""
+
+    momentum = 0.9              # the share of the running average kept
 
     def __init__(self, num_features, channel_axis=-1, eps=1e-5, device=None):
         super().__init__()
@@ -48,17 +97,63 @@ class BatchNorm(nn.Module):
                              init.zeros((num_features,), device))
         self.register_buffer("running_var", init.ones((num_features,), device))
 
+    def _batch_stats(self, x, ch):
+        xf = x.float()
+        red = tuple(i for i in range(x.ndim) if i != ch)
+        bshape = [x.shape[i] if i == ch else 1 for i in range(x.ndim)]
+        mask = current_batch_mask()
+        if mask is not None and (ch == 0 or mask.shape[0] != x.shape[0]):
+            raise ValueError(
+                f"batch_mask_scope active (mask {tuple(mask.shape)}) but this "
+                f"BatchNorm input {tuple(x.shape)} (channel axis {ch}) is not "
+                f"batch-led; masked statistics cannot be applied")
+        if mask is None:
+            n = math.prod(x.shape[i] for i in red)
+            mean = xf.mean(red)
+            var = (xf - mean.view(bshape)).square().mean(red)
+            return mean, var, n / max(n - 1, 1)
+        spatial = math.prod(x.shape[i] for i in red if i != 0)
+        w = mask.to(xf.dtype).view([x.shape[0]] + [1] * (x.ndim - 1))
+        n = torch.clamp_min(mask.to(xf.dtype).sum(), 1.0) * spatial
+        mean = (xf * w).sum(red) / n
+        var = ((xf - mean.view(bshape)).square() * w).sum(red) / n
+        return mean, var, n / torch.clamp_min(n - 1, 1.0)
+
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm statistics are not ported yet (see "
-                "ROADMAP.md); call model.eval() to score")
         ch = self.channel_axis % x.ndim
         bshape = [1] * x.ndim
         bshape[ch] = x.shape[ch]
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x - self.running_mean.view(bshape)) * inv.view(bshape)
+        if self.training:
+            mean, var, unbias = self._batch_stats(x, ch)
+            with torch.no_grad():
+                self.running_mean.copy_(self.momentum * self.running_mean
+                                        + (1 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var
+                                       + (1 - self.momentum) * var * unbias)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean.view(bshape).to(x.dtype)) * inv.view(bshape)
                 + self.bias.view(bshape))
+
+
+class Dropout(nn.Module):
+    """Inverted dropout in train mode, with the mask drawn from the
+    generator of the active dropout_scope (never the global RNG)."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        gen = getattr(_scope, "generator", None)
+        if gen is None:
+            raise ValueError("Dropout in train mode draws its mask from the "
+                             "generator of dropout_scope; none is active")
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.p
+        return x * keep / (1.0 - self.p)
 
 
 class Embedding(nn.Module):
@@ -87,7 +182,7 @@ class MLP(nn.Module):
         self.norms = nn.ModuleList(
             [BatchNorm(nhid, -1, device=generator.device)
              for _ in range(nlayers)])
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x):
         for linear, norm in zip(self.linears, self.norms):

@@ -1,14 +1,38 @@
-"""On-device metrics (port of masked_roc_auc and masked_accuracy in
-armnet_tpu/train/metrics.py).
+"""On-device losses and metrics (port of armnet_tpu/train/metrics.py).
 
 ROC-AUC uses the tie-aware rank (Mann-Whitney) formulation, which matches
 sklearn.roc_auc_score's average-rank tie handling, and is 0.0 when the
 valid rows hold a single class, like the reference's exception path.
+
+The losses are means over the rows with mask > 0. They zero the pad rows
+with `where` before the sum, not with `* mask`: a pad row's logit may be
+non-finite, and inf * 0 = NaN would poison the batch loss.
 """
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["masked_roc_auc", "masked_accuracy"]
+__all__ = ["masked_roc_auc", "masked_accuracy", "masked_bce",
+           "masked_softmax_ce"]
+
+
+def _masked_mean(losses, mask):
+    losses = torch.where(mask > 0, losses, 0.0)
+    return losses.sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def masked_bce(logits, labels, mask):
+    """Mean sigmoid binary cross-entropy over valid rows
+    (BCEWithLogitsLoss parity)."""
+    return _masked_mean(F.binary_cross_entropy_with_logits(
+        logits.float(), labels.float(), reduction="none"), mask)
+
+
+def masked_softmax_ce(logits, labels, mask):
+    """Mean softmax cross-entropy over valid rows; logits [B, C], labels [B]
+    class indices carried as floats in the batch schema."""
+    return _masked_mean(F.cross_entropy(
+        logits.float(), labels.long(), reduction="none"), mask)
 
 
 def masked_roc_auc(logits, labels, mask=None):

@@ -1,0 +1,124 @@
+"""Train and eval steps (port of armnet_tpu/train/step.py).
+
+The step: train-mode forward under batch_mask_scope (masked BatchNorm
+statistics) and dropout_scope (the run's generator), the masked loss (BCE
+with logits, or softmax CE for a multi-class head), backward, every
+gradient clamped elementwise to [-clip, clip], then Adam with torch's
+defaults (betas 0.9/0.999, eps 1e-8): optax.chain(clip(1.0), adam(lr)) of
+the JAX package, and the reference's clamp hooks. The step is dense: every
+table row gets a gradient (zero where the batch did not touch it) and
+Adam decays the moments of untouched rows, as optax does; sparse gradients
+and SparseAdam would not.
+
+The quality metric (ROC-AUC or accuracy) is taken on the logits from before
+the update. Meters are tensors on the model's device, so a step never waits
+for the device; the loop reads them only at report and epoch boundaries.
+"""
+
+import torch
+
+from armnet_tpu_torch.ops.layers import batch_mask_scope, dropout_scope
+from armnet_tpu_torch.train.metrics import (masked_accuracy, masked_bce,
+                                            masked_roc_auc, masked_softmax_ce)
+
+__all__ = ["TrainState", "create_train_state", "make_optimizer",
+           "make_train_step", "make_eval_step", "init_meters", "task_fns",
+           "forward_loss", "clamp_grads"]
+
+
+def task_fns(task):
+    """(loss_fn, metric_fn, metric_name): 'binary' is the CTR path (BCE +
+    ROC-AUC), 'multiclass' the UCI path (softmax CE + top-1 accuracy)."""
+    if task == "binary":
+        return masked_bce, masked_roc_auc, "AUC"
+    if task == "multiclass":
+        return masked_softmax_ce, masked_accuracy, "Acc"
+    raise ValueError(f"unknown task {task!r}")
+
+
+class TrainState:
+    """The model, its optimizer and the number of steps taken (the torch
+    counterpart of the JAX TrainState)."""
+
+    def __init__(self, model, optimizer, step=0):
+        self.model = model
+        self.optimizer = optimizer
+        self.step = step
+
+
+def make_optimizer(params, lr):
+    """Adam with torch's (and optax's) defaults; the clamp runs before it
+    in the train step."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def create_train_state(model, lr):
+    return TrainState(model, make_optimizer(model.parameters(), lr))
+
+
+def init_meters(device):
+    """Metric accumulators on the device."""
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"loss_sum": z, "auc_sum": z, "weight": z, "loss_last": z,
+            "auc_last": z}
+
+
+def _update_meters(meters, loss, auc, n):
+    return {"loss_sum": meters["loss_sum"] + loss * n,
+            "auc_sum": meters["auc_sum"] + auc * n,
+            "weight": meters["weight"] + n,
+            "loss_last": loss, "auc_last": auc}
+
+
+def forward_loss(model, batch, loss_fn=masked_bce, generator=None):
+    """(loss, logits) of a train-mode forward of `batch` (tensors on the
+    model's device), with masked BatchNorm statistics; updates the running
+    statistics."""
+    model.train()
+    with batch_mask_scope(batch["mask"]), dropout_scope(generator):
+        logits = model(batch)
+    return loss_fn(logits, batch["y"], batch["mask"]), logits
+
+
+def clamp_grads(params, clip):
+    """Clamp every gradient elementwise to [-clip, clip], in place."""
+    for p in params:
+        if p.grad is not None:
+            p.grad.clamp_(-clip, clip)
+
+
+def make_train_step(task="binary", clip=1.0, generator=None):
+    """train_step(state, meters, batch) -> meters: forward, loss, backward,
+    clamp, Adam; the metric on the pre-update logits. `generator` draws the
+    dropout masks."""
+    loss_fn, metric_fn, _ = task_fns(task)
+
+    def train_step(state, meters, batch):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, logits = forward_loss(state.model, batch, loss_fn, generator)
+        loss.backward()
+        clamp_grads(state.model.parameters(), clip)
+        state.optimizer.step()
+        state.step += 1
+        with torch.no_grad():
+            auc = metric_fn(logits.detach(), batch["y"], batch["mask"])
+        return _update_meters(meters, loss.detach(), auc,
+                              batch["mask"].sum())
+
+    return train_step
+
+
+def make_eval_step(task="binary"):
+    """eval_step(state, meters, batch) -> meters: running BatchNorm
+    statistics, no dropout, no gradients."""
+    loss_fn, metric_fn, _ = task_fns(task)
+
+    @torch.inference_mode()
+    def eval_step(state, meters, batch):
+        state.model.eval()
+        logits = state.model(batch)
+        loss = loss_fn(logits, batch["y"], batch["mask"])
+        auc = metric_fn(logits, batch["y"], batch["mask"])
+        return _update_meters(meters, loss, auc, batch["mask"].sum())
+
+    return eval_step

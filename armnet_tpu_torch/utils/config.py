@@ -3,9 +3,9 @@
 Every flag name of the JAX CLI is kept, so checkpoint metadata written by
 either package restores through the same names. Differences: `--device`
 (default cuda) picks where the port runs, and `--kernels` takes `auto` only
-(the kernel a tensor gets follows its device). Flags that only the training
-slice or the multi-device work will read (optimizer, mesh, sharding) are
-accepted and unused for now.
+(the kernel a tensor gets follows its device). The multi-device flags
+(--mesh, --shard_embedding and the exchange options) are accepted, and the
+trainer raises NotImplementedError on them until that work is ported.
 """
 
 import argparse

@@ -125,6 +125,9 @@ def test_create_model_raises_for_models_not_ported():
 
 
 def test_init_is_seeded_and_train_mode_raises():
+    """The init is seeded; train mode, which used to raise, now runs: a
+    train-mode forward is finite, every parameter gets a gradient, and the
+    running statistics of every BatchNorm (arm_bn, both MLPs) move."""
     cfg = ModelConfig(**small_config(ensemble=True))
     a, b = create_model(cfg, seed=3), create_model(cfg, seed=3)
     for (ka, ta), (kb, tb) in zip(a.state_dict().items(),
@@ -133,5 +136,10 @@ def test_init_is_seeded_and_train_mode_raises():
         torch.testing.assert_close(ta, tb)
     batch = {k: torch.from_numpy(x) for k, x in
              random_batch(np.random.RandomState(0), 4, cfg.nfeat).items()}
-    with torch.no_grad(), pytest.raises(NotImplementedError):
-        a.train()(batch)
+    y = a.train()(batch)
+    assert y.shape == (4,) and bool(torch.isfinite(y).all())
+    y.sum().backward()
+    assert all(p.grad is not None for p in a.parameters())
+    for key, t in a.state_dict().items():
+        if key.endswith("running_mean"):
+            assert not torch.equal(t, b.state_dict()[key]), key

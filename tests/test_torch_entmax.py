@@ -1,8 +1,10 @@
 """The port's entmax (armnet_tpu_torch) against the JAX package's solver and
-its Pallas kernel (interpret mode) on the same seeded numpy inputs, plus
-the port's CPU dispatch. The CUDA kernel itself is held against the plain
-version on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+its Pallas kernel (interpret mode) on the same seeded numpy inputs, forward
+and backward, plus the port's CPU dispatch. The CUDA kernels themselves are
+held against the plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,13 +16,15 @@ from armnet_tpu.kernels.entmax_common import \
 from armnet_tpu.kernels.entmax_pallas import entmax_pallas
 from armnet_tpu.ops.entmax import entmax_bisect as jax_entmax_bisect
 from armnet_tpu_torch.kernels import entmax_cuda
-from armnet_tpu_torch.kernels.entmax_common import (solve_entmax_axis0,
+from armnet_tpu_torch.kernels.entmax_common import (entmax_bwd_axis0,
+                                                    solve_entmax_axis0,
                                                     solver_mode)
 from armnet_tpu_torch.ops.entmax import entmax_bisect, sparse_normalizer
 
 ALPHAS = [1.5, 1.7, 2.0, 2.5]
 # the mid-axis shapes of tests/test_kernels.py plus a ragged one (axis 1)
 SHAPES = [(8, 13, 256), (6, 39, 128), (4, 7, 384), (7, 5, 13)]
+BWD_ATOL = 2e-5
 
 
 def _x(shape, seed=0, scale=3.0):
@@ -112,13 +116,100 @@ def test_kernel_build_raises_without_cuda_toolkit():
 
 
 def test_entmax_rejects_what_is_not_ported():
+    """alpha <= 1 and a learned (tensor) alpha still raise; the backward is
+    ported: a requires_grad input gets the plain VJP as its gradient."""
     x = torch.randn(3, 4)
     with pytest.raises(ValueError):
         entmax_bisect(x, 1.0)
     with pytest.raises(NotImplementedError, match="learned"):
         entmax_bisect(x, torch.tensor(1.5))
-    with pytest.raises(NotImplementedError, match="backward"):
-        entmax_bisect(x.requires_grad_(), 1.5)
+    x = torch.from_numpy(_x((3, 4), seed=8)).requires_grad_()
+    dy = torch.from_numpy(_x((3, 4), seed=9))
+    y = entmax_bisect(x, 1.5)
+    y.backward(dy)
+    want = entmax_bwd_axis0(y.detach().t(), dy.t(), 1.5).t()
+    np.testing.assert_array_equal(x.grad.numpy(), want.numpy())
+
+
+def _jax_vjp(fn, x, dy):
+    y, vjp = jax.vjp(fn, jnp.asarray(x))
+    return np.asarray(y), np.asarray(vjp(jnp.asarray(dy))[0])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_backward_matches_pallas_interpret(alpha, shape):
+    """dx of the port (autograd through the plain backward) against
+    jax.vjp of the Pallas entries: the mid-axis kernel K4 for a lane-aligned
+    last dim, the general kernel K3 for the ragged shape."""
+    x, dy = _x(shape, seed=10), _x(shape, seed=11, scale=1.0)
+    with pltpu.force_tpu_interpret_mode():
+        yj, dxj = _jax_vjp(lambda v: entmax_pallas(v, alpha=alpha, axis=1),
+                           x, dy)
+    # the plain backward from JAX's own y
+    dxp = entmax_cuda.entmax_bwd_plain(torch.from_numpy(yj.copy()),
+                                       torch.from_numpy(dy), alpha, 1)
+    np.testing.assert_allclose(dxp.numpy(), dxj, atol=BWD_ATOL)
+    xt = torch.from_numpy(x).requires_grad_()
+    y = entmax_bisect(xt, alpha, axis=1)
+    y.backward(torch.from_numpy(dy))
+    if alpha <= 2.0:
+        np.testing.assert_allclose(xt.grad.numpy(), dxj, atol=BWD_ATOL)
+    else:
+        # g = y^(2-alpha) = y^-0.5 at alpha 2.5: the forwards' 1e-5 gap at
+        # the support edge (y ~ 1e-3) moves dx by ~1e-4, so autograd is
+        # held to the plain backward of the port's own y instead
+        np.testing.assert_array_equal(
+            xt.grad.numpy(),
+            entmax_cuda.entmax_bwd_plain(y.detach(), torch.from_numpy(dy),
+                                         alpha, 1).numpy())
+
+
+@pytest.mark.parametrize("axis", [0, -1])
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_backward_matches_jax_default_path(alpha, axis):
+    """dx against jax.vjp of the JAX package's CPU entmax_bisect (its
+    exponent-specialized custom VJP), on the first and last axes."""
+    x, dy = _x((9, 33), seed=12), _x((9, 33), seed=13, scale=1.0)
+    _, dxj = _jax_vjp(lambda v: jax_entmax_bisect(v, alpha, axis=axis), x,
+                      dy)
+    xt = torch.from_numpy(x).requires_grad_()
+    entmax_bisect(xt, alpha, axis=axis).backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(xt.grad.numpy(), dxj, atol=BWD_ATOL)
+
+
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_plain_backward_nan_column(alpha):
+    """A NaN column of y gives a NaN column of dx (0/0), and no other NaN;
+    the CUDA backward kernel keeps the same rule."""
+    y = entmax_cuda.entmax_plain(torch.from_numpy(_x((3, 39, 16), seed=14)),
+                                 alpha, 1)
+    y[1, :, 5] = float("nan")
+    dx = entmax_cuda.entmax_bwd_plain(
+        y, torch.from_numpy(_x((3, 39, 16), seed=15)), alpha, 1)
+    assert bool(dx[1, :, 5].isnan().all()) and int(dx.isnan().sum()) == 39
+
+
+def test_backward_sums_to_zero_and_vanishes_off_support():
+    """dx sums to 0 along the axis (the output stays on the simplex) and is
+    0 wherever y is 0."""
+    x = torch.from_numpy(_x((6, 39, 16), seed=16))
+    y = entmax_bisect(x, 2.0, axis=1)
+    dx = entmax_cuda.entmax_bwd_plain(
+        y, torch.from_numpy(_x((6, 39, 16), seed=17)), 2.0, 1)
+    assert float((y == 0).float().mean()) > 0.5
+    assert bool((dx[y == 0] == 0).all())
+    np.testing.assert_allclose(dx.sum(1).numpy(), 0.0, atol=1e-5)
+
+
+def test_cpu_backward_takes_plain_version_without_launch():
+    before = entmax_cuda.BWD_LAUNCHES
+    x = torch.from_numpy(_x((4, 39, 16), seed=18)).requires_grad_()
+    entmax_bisect(x, 2.0, axis=1).sum().backward()
+    assert entmax_cuda.BWD_LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        entmax_cuda.entmax_bwd_kernel(torch.zeros(4, 5), torch.zeros(4, 5),
+                                      2.0)
 
 
 def test_sparse_normalizer_is_softmax_at_one():

@@ -12,9 +12,12 @@ from armnet_tpu.ops.embedding import scaled_embedding_lookup
 from armnet_tpu.ops.layers import MLP as JaxMLP
 from armnet_tpu.ops.layers import BatchNorm as JaxBatchNorm
 from armnet_tpu.ops.layers import TorchLinear as JaxTorchLinear
+from armnet_tpu.ops.layers import batch_mask_scope as jax_batch_mask_scope
 from armnet_tpu_torch.ops import initializers as init
 from armnet_tpu_torch.ops.embedding import embedding_bag
-from armnet_tpu_torch.ops.layers import MLP, BatchNorm, Embedding, TorchLinear
+from armnet_tpu_torch.ops.layers import (MLP, BatchNorm, Dropout, Embedding,
+                                         TorchLinear, batch_mask_scope,
+                                         dropout_scope)
 
 ATOL = 1e-6
 
@@ -93,9 +96,99 @@ def test_batchnorm_eval_matches_flax(shape, axis):
                                    atol=ATOL)
 
 
+def _bn_train_pair(x, axis, mask=None, seed=4):
+    """(port output, port running stats, JAX output, JAX running stats) of
+    one train-mode BatchNorm call from the same weights and statistics,
+    inside both packages' batch_mask_scope when a mask is given."""
+    rng = _rng(seed)
+    n = x.shape[axis]
+    p, s = _bn_state(rng, n)
+    jm = JaxBatchNorm(channel_axis=axis)
+    v = {"params": {"BatchNorm_0": p}, "batch_stats": {"BatchNorm_0": s}}
+    bn = BatchNorm(n, axis).train()
+    _load_bn(bn, p, s)
+    if mask is None:
+        yj, upd = jm.apply(v, jnp.asarray(x), train=True,
+                           mutable=["batch_stats"])
+        yt = bn(torch.from_numpy(x))
+    else:
+        with jax_batch_mask_scope(jnp.asarray(mask)):
+            yj, upd = jm.apply(v, jnp.asarray(x), train=True,
+                               mutable=["batch_stats"])
+        with batch_mask_scope(torch.from_numpy(mask)):
+            yt = bn(torch.from_numpy(x))
+    st = upd["batch_stats"]["BatchNorm_0"]
+    return (yt.detach().numpy(), (bn.running_mean.numpy(),
+                                  bn.running_var.numpy()),
+            np.asarray(yj), (np.asarray(st["mean"]), np.asarray(st["var"])))
+
+
 def test_batchnorm_train_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchNorm(4)(torch.zeros(2, 4))
+    """Train mode is ported: unmasked batch statistics (biased variance to
+    normalize, the unbiased one into the running average, momentum 0.1)
+    match the JAX BatchNorm in train mode."""
+    x = _rng(5).randn(9, 16).astype(np.float32) * 2 + 0.5
+    yt, (mt, vt), yj, (mj, vj) = _bn_train_pair(x, -1)
+    np.testing.assert_allclose(yt, yj, atol=ATOL)
+    np.testing.assert_allclose(mt, mj, atol=ATOL)
+    np.testing.assert_allclose(vt, vj, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape,axis", [((12, 8, 4), 1), ((12, 16), -1)])
+def test_batchnorm_masked_train_matches_jax(shape, axis):
+    """A padded batch under batch_mask_scope: the output and the running
+    statistics after one update match JAX, and the pad rows (filled with
+    outliers) move neither."""
+    rng = _rng(6)
+    x = rng.randn(*shape).astype(np.float32)
+    mask = np.ones(shape[0], np.float32)
+    mask[7:] = 0.0
+    x[7:] = 50.0                        # pad rows: junk the stats must skip
+    yt, (mt, vt), yj, (mj, vj) = _bn_train_pair(x, axis, mask)
+    np.testing.assert_allclose(yt[:7], yj[:7], atol=ATOL)
+    # pad outputs are ~150 (one f32 ulp is 1.5e-5 there): relative
+    np.testing.assert_allclose(yt[7:], yj[7:], rtol=1e-6)
+    np.testing.assert_allclose(mt, mj, atol=ATOL)
+    np.testing.assert_allclose(vt, vj, atol=ATOL)
+    # the same real rows alone, unmasked, give the same statistics
+    _, (mr, vr), _, _ = _bn_train_pair(x[:7], axis)
+    np.testing.assert_allclose(mt, mr, atol=ATOL)
+    np.testing.assert_allclose(vt, vr, atol=ATOL)
+
+
+def test_batchnorm_raises_on_input_not_batch_led():
+    bn = BatchNorm(6, channel_axis=0).train()
+    with batch_mask_scope(torch.ones(6)):
+        with pytest.raises(ValueError, match="not batch-led"):
+            bn(torch.zeros(6, 3))
+    with batch_mask_scope(torch.ones(5)):
+        with pytest.raises(ValueError, match="not batch-led"):
+            BatchNorm(3).train()(torch.zeros(4, 3))
+
+
+def test_batchnorm_train_mode_has_gradients():
+    x = torch.from_numpy(_rng(7).randn(8, 5).astype(np.float32))
+    x.requires_grad_()
+    bn = BatchNorm(5).train()
+    bn(x).square().sum().backward()
+    assert x.grad is not None and bn.weight.grad is not None
+    # the mean is normalized out: the gradient sums to 0 per channel
+    np.testing.assert_allclose(x.grad.sum(0).numpy(), 0.0, atol=1e-4)
+
+
+def test_dropout_draws_from_the_scope_generator():
+    drop = Dropout(0.5).train()
+    x = torch.ones(64, 32)
+    with dropout_scope(torch.Generator().manual_seed(3)):
+        a = drop(x)
+    with dropout_scope(torch.Generator().manual_seed(3)):
+        b = drop(x)
+    torch.testing.assert_close(a, b)
+    assert set(a.unique().tolist()) == {0.0, 2.0}
+    with pytest.raises(ValueError, match="dropout_scope"):
+        drop(x)
+    torch.testing.assert_close(drop.eval()(x), x)
+    torch.testing.assert_close(Dropout(0.0).train()(x), x)
 
 
 def test_mlp_eval_matches_flax():
