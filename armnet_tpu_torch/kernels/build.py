@@ -16,7 +16,7 @@ import subprocess
 import time
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "sources", "build_all", "build_log",
-           "load"]
+           "load", "function"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -47,9 +47,14 @@ def _nvcc():
 
 
 def _lib_path(name):
+    """The library's path, named by a hash of the flags, the source and
+    every header in csrc/ (which the source may include)."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu")] + headers:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}.{h.hexdigest()[:12]}.so")
 
 
@@ -109,3 +114,13 @@ def load(name):
         build_all([name])
         lib = _loaded[name] = ctypes.CDLL(_lib_path(name))
     return lib
+
+
+def function(source, name, argtypes):
+    """ctypes function `name` of csrc/<source>.cu, returning an int (the
+    cudaError_t), with its argument types set; built at first use."""
+    fn = getattr(load(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

@@ -13,8 +13,15 @@ budgets (its environment-variable knobs are not carried over):
     safeguarded Newton steps on the exact pow;
   * alpha > 2: N_BISECT exact bisections, then N_NEWTON Newton steps.
 
-The CUDA kernel (csrc/entmax.cu) repeats this arithmetic operation for
-operation; `solver_mode` is the one place both read the branch from.
+The CUDA kernels (the column solve of csrc/entmax_solver.cuh) repeat this
+arithmetic operation for operation, and the sums over the normalized axis
+are taken in index order (`_sum0`) as a kernel thread takes them, so a
+kernel and this version give the same bits from the same inputs wherever
+they call the same pow: near the support boundary the solve is so
+sensitive (at alpha > 2 its Newton budget leaves rare columns unconverged;
+the VJP's y^(2-alpha) has an unbounded slope at 0) that one ulp of a sum
+can move y or a gradient far past any useful tolerance. `solver_mode` is
+the one place both read the branch from.
 
 The backward (`entmax_bwd_axis0`, the plain version of the CUDA backward
 kernel) needs only the output y: g = y^(2-alpha) on the support (y > 0),
@@ -85,6 +92,15 @@ def _fast_pow(z, inv_am1):
     return torch.where(z > 0, pb.view(torch.float32), 0.0)
 
 
+def _sum0(x):
+    """Sum over axis 0, kept as a leading axis of 1, adding the entries in
+    index order."""
+    s = x[0:1]
+    for k in range(1, x.shape[0]):
+        s = s + x[k:k + 1]
+    return s
+
+
 def solve_entmax_axis0(x, alpha, n_iter=50):
     """alpha-entmax over axis 0 of a float32 tensor of any rank."""
     am1 = alpha - 1.0
@@ -94,7 +110,7 @@ def solve_entmax_axis0(x, alpha, n_iter=50):
     mode = solver_mode(alpha)
 
     def f_val(tau):
-        return pow_inv(x - tau, inv_am1).sum(0, keepdim=True) - 1.0
+        return _sum0(pow_inv(x - tau, inv_am1)) - 1.0
 
     max_val = x.amax(0, keepdim=True)
     tau_lo = max_val - 1.0                      # f(tau_lo) >= 0 always
@@ -109,7 +125,7 @@ def solve_entmax_axis0(x, alpha, n_iter=50):
             tau = t_lo + dm
             t_lo = torch.where(f_val(tau) * f_lo0 >= 0, tau, t_lo)
         p = pow_inv(x - tau, inv_am1)
-        return p / p.sum(0, keepdim=True)
+        return p / _sum0(p)
 
     if mode == "fastpow":
         # the fast bracket only seeds tau; the polish below re-derives its
@@ -117,7 +133,7 @@ def solve_entmax_axis0(x, alpha, n_iter=50):
         t_lo, t_hi = tau_lo, tau_hi
         for _ in range(N_FAST):
             t_m = 0.5 * (t_lo + t_hi)
-            pos = _fast_pow(x - t_m, inv_am1).sum(0, keepdim=True) - 1.0 >= 0
+            pos = _sum0(_fast_pow(x - t_m, inv_am1)) - 1.0 >= 0
             t_lo = torch.where(pos, t_m, t_lo)
             t_hi = torch.where(pos, t_hi, t_m)
         tau = 0.5 * (t_lo + t_hi)
@@ -134,10 +150,9 @@ def solve_entmax_axis0(x, alpha, n_iter=50):
     for _ in range(n_polish):
         z = torch.clamp_min(x - tau, 0.0)
         p = pow_inv(z, inv_am1)
-        s1 = p.sum(0, keepdim=True) - 1.0
+        s1 = _sum0(p) - 1.0
         # f' = -inv_am1 * sum p/z over the support
-        s2 = torch.where(z > 0, p / torch.clamp_min(z, _TINY),
-                         0.0).sum(0, keepdim=True)
+        s2 = _sum0(torch.where(z > 0, p / torch.clamp_min(z, _TINY), 0.0))
         pos = s1 >= 0
         tau_lo = torch.where(pos, tau, tau_lo)
         tau_hi = torch.where(pos, tau_hi, tau)
@@ -147,7 +162,7 @@ def solve_entmax_axis0(x, alpha, n_iter=50):
         inside = (t_n >= tau_lo) & (t_n <= tau_hi)
         tau = torch.where(inside, t_n, 0.5 * (tau_lo + tau_hi))
     p = pow_inv(x - tau, inv_am1)
-    return p / p.sum(0, keepdim=True)
+    return p / _sum0(p)
 
 
 def entmax_bwd_axis0(y, dy, alpha):

@@ -17,13 +17,15 @@ import math
 
 import torch
 
+from armnet_tpu_torch.kernels import build
 from armnet_tpu_torch.kernels.entmax_common import (bisect_steps,
                                                     entmax_bwd_axis0,
                                                     solve_entmax_axis0,
                                                     solver_mode)
 
 __all__ = ["entmax_kernel", "entmax_plain", "entmax_bwd_kernel",
-           "entmax_bwd_plain", "LAUNCHES", "BWD_LAUNCHES", "MAX_D"]
+           "entmax_bwd_plain", "mode_id", "g_mode_id",
+           "LAUNCHES", "BWD_LAUNCHES", "MAX_D"]
 
 # kernel launches since the count was last set to 0 (the one place that
 # adds to LAUNCHES is entmax_kernel, to BWD_LAUNCHES entmax_bwd_kernel,
@@ -49,14 +51,17 @@ def entmax_bwd_plain(y, dy, alpha, axis=-1):
                             alpha).movedim(0, axis)
 
 
-def _fn(name, argtypes):
-    from armnet_tpu_torch.kernels import build
+def mode_id(alpha):
+    """The solver branch of csrc/entmax_solver.cuh (Mode) for a static
+    alpha."""
+    mode = solver_mode(alpha)
+    return _BISECT_MODE[1.0 / (alpha - 1.0)] if mode == "bisect" else \
+        _MODE[mode]
 
-    fn = getattr(build.load("entmax"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+
+def g_mode_id(alpha):
+    """The VJP's g of csrc/entmax_solver.cuh (GMode) for a static alpha."""
+    return _G_MODE.get(2.0 - alpha, 2)
 
 
 def _view(x, alpha, axis, who, *more):
@@ -91,17 +96,15 @@ def entmax_kernel(x, alpha, axis=-1, n_iter=50):
     if x.numel() == 0:
         return y
     am1 = alpha - 1.0
-    inv_am1 = 1.0 / am1
-    mode = solver_mode(alpha)
-    mode_id = _BISECT_MODE[inv_am1] if mode == "bisect" else _MODE[mode]
-    fn = _fn("armnet_entmax_fwd",
-             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-              ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-              ctypes.c_float, ctypes.c_float, ctypes.c_float,
-              ctypes.c_void_p])
+    fn = build.function(
+        "entmax", "armnet_entmax_fwd",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+         ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), outer, d, inner, mode_id,
-                 bisect_steps(n_iter), am1, inv_am1, (1.0 / d) ** am1,
+        err = fn(x.data_ptr(), y.data_ptr(), outer, d, inner,
+                 mode_id(alpha), bisect_steps(n_iter), am1, 1.0 / am1,
+                 (1.0 / d) ** am1,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"entmax kernel launch failed: cudaError {err}")
@@ -119,14 +122,14 @@ def entmax_bwd_kernel(y, dy, alpha, axis=-1):
     dx = torch.empty_like(y)
     if y.numel() == 0:
         return dx
-    e = 2.0 - alpha
-    fn = _fn("armnet_entmax_bwd",
-             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-              ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn = build.function(
+        "entmax", "armnet_entmax_bwd",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(y.device):
         err = fn(y.data_ptr(), dy.data_ptr(), dx.data_ptr(), outer, d, inner,
-                 _G_MODE.get(e, 2), e,
+                 g_mode_id(alpha), 2.0 - alpha,
                  torch.cuda.current_stream(y.device).cuda_stream)
     if err != 0:
         raise RuntimeError(

@@ -20,6 +20,8 @@ import ctypes
 
 import torch
 
+from armnet_tpu_torch.kernels import build
+
 __all__ = ["table_grad", "table_grad_sorted", "table_grad_plain",
            "sort_ids", "LAUNCHES"]
 
@@ -53,18 +55,6 @@ def sort_ids(ids, nrows):
     return torch.sort(keys, stable=True)
 
 
-def _fn():
-    from armnet_tpu_torch.kernels import build
-
-    fn = build.load("table_grad").armnet_table_grad
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def table_grad_sorted(g, sid, order, nrows):
     """The CUDA kernel on ids sorted by `sort_ids`: g [N, E] contiguous
     float32, sid [N] int32, order [N] int64, all on one card. Raises on
@@ -87,9 +77,14 @@ def table_grad_sorted(g, sid, order, nrows):
         raise ValueError(f"table_grad takes fewer than 2^31 updates, got {n}")
     out = torch.empty((nrows, e), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
-        err = _fn()(g.data_ptr(), sid.data_ptr(), order.data_ptr(), n, nrows,
-                    e, out.data_ptr(),
-                    torch.cuda.current_stream(g.device).cuda_stream)
+        err = build.function(
+            "table_grad", "armnet_table_grad",
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p])(
+                g.data_ptr(), sid.data_ptr(), order.data_ptr(), n, nrows, e,
+                out.data_ptr(),
+                torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"table_grad kernel launch failed: cudaError {err}")
     LAUNCHES += 1

@@ -16,11 +16,15 @@ __all__ = ["SparseAttention", "ARMNet1H"]
 
 class SparseAttention(nn.Module):
     """One-head sparse interaction [B, F, E] -> [B, O, E]. Parameters keep
-    the JAX layout: bilinear_w [E, d_k], query [O, d_k], values [O, F]."""
+    the JAX layout: bilinear_w [E, d_k], query [O, d_k], values [O, F].
+    `kernels` 'pallas-fused' takes the fused ARM-1h kernels, any other
+    choice the composed path (kernels/config.py)."""
 
-    def __init__(self, nfield, d_k, nhid, nemb, alpha, generator):
+    def __init__(self, nfield, d_k, nhid, nemb, alpha, generator,
+                 kernels="auto"):
         super().__init__()
         self.alpha = alpha
+        self.kernels = kernels
         self.bilinear_w = nn.Parameter(
             init.torch_linear_uniform((nemb, d_k), nemb, generator))
         self.query = nn.Parameter(
@@ -30,7 +34,7 @@ class SparseAttention(nn.Module):
 
     def forward(self, x):
         return arm1h_interaction(x, self.bilinear_w, self.query, self.values,
-                                 self.alpha)
+                                 self.alpha, kernels=self.kernels)
 
 
 class ARMNet1H(nn.Module):
@@ -38,11 +42,12 @@ class ARMNet1H(nn.Module):
 
     def __init__(self, nfield, nfeat, nemb, alpha, nhid, d_k, mlp_nlayer,
                  mlp_nhid, dropout, ensemble, deep_nlayer, deep_nhid,
-                 noutput=1, generator=None):
+                 noutput=1, generator=None, kernels="auto"):
         super().__init__()
         g = generator if generator is not None else torch.Generator()
         self.embedding = Embedding(nfeat, nemb, g)
-        self.attn_layer = SparseAttention(nfield, d_k, nhid, nemb, alpha, g)
+        self.attn_layer = SparseAttention(nfield, d_k, nhid, nemb, alpha, g,
+                                          kernels)
         self.arm_bn = BatchNorm(nhid, channel_axis=1, device=g.device)
         self.mlp = MLP(nhid * nemb, mlp_nlayer, mlp_nhid, dropout, noutput, g)
         self.ensemble = (DeepEnsemble(nfield, nfeat, nemb, deep_nlayer,

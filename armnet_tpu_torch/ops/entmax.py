@@ -18,15 +18,16 @@ import torch
 
 from armnet_tpu_torch.kernels import entmax_cuda
 
-__all__ = ["entmax_bisect", "sparse_normalizer"]
+__all__ = ["entmax_bisect", "sparse_normalizer", "pick"]
 
 
-def _pick(device, kernel, plain):
+def pick(device, kernel, plain, who="entmax"):
+    """The kernel for a CUDA tensor, the plain version for a CPU one."""
     if device.type == "cuda":
         return kernel
     if device.type == "cpu":
         return plain
-    raise ValueError(f"entmax has no path for device {device}")
+    raise ValueError(f"{who} has no path for device {device}")
 
 
 class _Entmax(torch.autograd.Function):
@@ -34,8 +35,8 @@ class _Entmax(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, alpha, axis, n_iter):
-        y = _pick(x.device, entmax_cuda.entmax_kernel,
-                  entmax_cuda.entmax_plain)(x, alpha, axis, n_iter)
+        y = pick(x.device, entmax_cuda.entmax_kernel,
+                 entmax_cuda.entmax_plain)(x, alpha, axis, n_iter)
         ctx.save_for_backward(y)
         ctx.alpha, ctx.axis = alpha, axis
         return y
@@ -43,8 +44,8 @@ class _Entmax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         (y,) = ctx.saved_tensors
-        dx = _pick(y.device, entmax_cuda.entmax_bwd_kernel,
-                   entmax_cuda.entmax_bwd_plain)(
+        dx = pick(y.device, entmax_cuda.entmax_bwd_kernel,
+                  entmax_cuda.entmax_bwd_plain)(
             y, dy.float().contiguous(), ctx.alpha, ctx.axis)
         return dx, None, None, None
 

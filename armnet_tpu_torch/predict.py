@@ -80,7 +80,7 @@ def _restore_model_config(cfg, meta, parser, argv):
 def load_model(root, tag, cfg, device):
     """The checkpoint's model, in eval mode on `device`."""
     state, _ = load_checkpoint(root, tag)
-    model = create_model(cfg, seed=cfg.seed)
+    model = create_model(cfg, seed=cfg.seed, kernels=cfg.kernels)
     model.load_state_dict(state)
     return model.to(device).eval()
 

@@ -13,6 +13,9 @@ training checkpoint (model, optimizer, step) into every seed's trainer.
 With --repeat > 1 the mean and std over seeds go to stdout and to
 {log_dir}/{exp_name}.repeat_summary.log. `--device` defaults to cuda and
 raises when CUDA is absent; pass `--device cpu` to train on the CPU.
+`--kernels pallas-fused` trains through the fused ARM-1h kernels (the
+trainer builds the model with the config's choice, and the checkpoints'
+metadata keeps it for predict).
 """
 
 import glob

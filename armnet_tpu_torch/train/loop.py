@@ -96,7 +96,8 @@ class Trainer:
         self.profile_dir = config.profile_dir
         self.device = resolve_device(config.device)
 
-        model = create_model(config, seed=seed, device=self.device)
+        model = create_model(config, seed=seed, device=self.device,
+                             kernels=config.kernels)
         # the JAX trainer draws one batch here (next(iter(train_loader))),
         # which advances the shuffle counter: keep its epoch schedule
         train_loader.epoch += 1

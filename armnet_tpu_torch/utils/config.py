@@ -2,8 +2,10 @@
 
 Every flag name of the JAX CLI is kept, so checkpoint metadata written by
 either package restores through the same names. Differences: `--device`
-(default cuda) picks where the port runs, and `--kernels` takes `auto` only
-(the kernel a tensor gets follows its device). The multi-device flags
+(default cuda) picks where the port runs, and `--kernels` takes `auto` and
+`pallas` (both the per-op kernels) and `pallas-fused` (the fused ARM-1h
+kernels), while `xla` raises; whether a tensor gets the kernel or its plain
+version follows its device. The multi-device flags
 (--mesh, --shard_embedding and the exchange options) are accepted, and the
 trainer raises NotImplementedError on them until that work is ported.
 """
@@ -12,6 +14,7 @@ import argparse
 import dataclasses
 from typing import Optional
 
+from armnet_tpu_torch.kernels.config import BACKENDS, use_fused_arm
 from armnet_tpu_torch.models.config import ModelConfig
 
 __all__ = ["ExperimentConfig", "build_arg_parser", "check_supported"]
@@ -59,10 +62,13 @@ def check_supported(cfg):
         raise NotImplementedError(
             "--bf16 is not ported yet (the port computes in float32); "
             "see ROADMAP.md")
-    if cfg.kernels != "auto":
+    if cfg.kernels == "xla":
         raise NotImplementedError(
-            f"--kernels {cfg.kernels!r} is not ported; the port takes "
-            f"'auto' only (see ROADMAP.md)")
+            "--kernels 'xla' has no counterpart in the port: on the card "
+            "every path runs this repository's kernels, and their plain "
+            "PyTorch versions are not a backend (they run only on the CPU); "
+            "take 'auto', 'pallas' or 'pallas-fused'")
+    use_fused_arm(cfg.kernels)                 # raises on an unknown name
 
 
 def build_arg_parser():
@@ -124,8 +130,10 @@ def build_arg_parser():
                    choices=["default", "high", "highest"])
     p.add_argument("--bf16", action="store_true", default=False,
                    help="not ported yet: raises NotImplementedError")
-    p.add_argument("--kernels", type=str, default=d.kernels, choices=["auto"],
-                   help="kernel dispatch follows the tensor's device")
+    p.add_argument("--kernels", type=str, default=d.kernels,
+                   choices=list(BACKENDS),
+                   help="auto and pallas: the per-op kernels; pallas-fused: "
+                        "the fused ARM-1h kernels; xla raises")
     p.add_argument("--mesh", type=str, default=d.mesh)
     p.add_argument("--shard_embedding", action="store_true", default=False)
     p.add_argument("--embedding_exchange", type=str,

@@ -13,25 +13,37 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               batch's ids, all ids equal, wrapped and dropped ids and a
               ragged table, twice (bitwise equal). Kernel, plain and
               library times (CUDA events, median) beside the bound
+     kernel_arm  the fused ARM-1h forward (K5) and recompute backward (K6)
+              against their plain versions at the Criteo and Frappe steps,
+              a ragged batch and one row, at four alphas, K6 twice
+              (bitwise equal); kernel, plain and composed-path times
+              beside the bound
   4. serve    armnet_tpu_torch.predict at the Criteo width of the
               cr_armnet1h preset (nfeat 2.1M, 39 fields, E=10, h=128, MLP
               2x500, alpha 2.0), ensemble off and on, on a seeded synthetic
               10,000-row libsvm file, one cold and three warm calls each:
               rows, finite scores, one kernel launch per batch, and GPU
               logits against the CPU's for the first batch
+     serve_fused  the same, ensemble off, under --kernels pallas-fused
+              (restored from the checkpoint's sidecar): one K5 launch per
+              batch and no entmax launch; logits against the auto path's
+              on the card and the CPU's
   5. frappe   predict at frappe_armnet1h widths on data/frappe/test.libsvm:
               rows, one launch per batch, GPU vs CPU logits of the first batch
   6. profile  torch.profiler over one warm Criteo-width scoring pass:
               device time by kernel and the device's busy share
   7. train    armnet_tpu_torch.train.cli.main at cr_armnet1h widths,
-              ensemble off and on (the cr_armnet1h+ tower), 2 epochs of 10
-              batches on seeded synthetic files: finite losses that fall,
-              the kernel launches per train step and per eval batch, one
-              step on the card against the same step on the CPU from the
-              run's checkpoint, and warm train rows/s over whole epochs
+              ensemble off and on (the cr_armnet1h+ tower), and with the
+              ensemble off under --kernels pallas-fused (K5 and K6 per
+              step, no entmax launch), 2 epochs of 10 batches on seeded
+              synthetic files: finite losses that fall, the kernel
+              launches per train step and per eval batch, one step on the
+              card against the same step on the CPU from the run's
+              checkpoint, and warm train rows/s over whole epochs
   8. frappe_train  3 epochs of the frappe_armnet1h recipe on data/frappe/:
               valid and test AUC per epoch beside the JAX package's curve
-  9. profile_train  torch.profiler over one warm Criteo-width train step
+  9. profile_train  torch.profiler over one warm Criteo-width train step,
+              under auto and under pallas-fused
 Then one JSON line {"kernels": [...]} and, last, the device JSON line.
 Weights are random, drawn from a seed. Exits non-zero without a result when
 CUDA is absent. Imports nothing of JAX.
@@ -53,11 +65,13 @@ import torch
 from armnet_tpu_torch import predict
 from armnet_tpu_torch.data.libsvm import (BatchIterator, LibsvmDataset,
                                           make_dataloaders)
-from armnet_tpu_torch.kernels import build, entmax_cuda, scatter_cuda
+from armnet_tpu_torch.kernels import (arm_cuda, build, entmax_cuda,
+                                      scatter_cuda)
 from armnet_tpu_torch.kernels.entmax_common import (N_BISECT, N_FAST,
                                                     N_NEWTON, N_POLISH,
                                                     solver_mode)
 from armnet_tpu_torch.models import create_model
+from armnet_tpu_torch.ops.interaction import arm1h_interaction
 from armnet_tpu_torch.train import cli
 from armnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from armnet_tpu_torch.train.loop import Trainer, run_epoch
@@ -75,6 +89,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_INSTR_PER_S = 33.5e12
 CRITEO_SHAPE = (4096, 39, 128)
 FRAPPE_SHAPE = (4096, 10, 128)
+# (B, F, E, dk, O) of the fused ARM-1h kernels at the cr_armnet1h and
+# frappe_armnet1h steps
+CRITEO_ARM = (4096, 39, 10, 10, 128)
+FRAPPE_ARM = (4096, 10, 10, 10, 128)
 CRITEO_NFEAT = 2_100_000
 ALPHAS = (1.5, 1.7, 2.0, 2.5)
 SEED = 2025
@@ -154,32 +172,30 @@ def bound(nbytes, nops):
                                                            "operations")
 
 
-def fused_arm_bounds():
-    """Bounds of the fused ARM-1h Pallas kernels K5 (_fwd_kernel) and K6
-    (_bwd_kernel) of armnet_tpu/kernels/arm_pallas.py, not ported yet, at
-    the cr_armnet1h step (B 4096, F 39, E = d_k = 10, O 128, alpha 2), by
-    the same counts as the ported kernels: bytes of each input read once
-    and each output written once; f32 instruction slots with a
-    multiply-add as one, exp as 8 plus 2, and the entmax solve and VJP as
+def fused_arm_bounds(shape, alpha):
+    """{"fwd"|"bwd": (bound ms, bound_by, bytes, f32 instruction slots)} of
+    the fused ARM-1h kernels K5 and K6 at (B, F, E, dk, O), by the same
+    counts as the other kernels: bytes of each input read once and each
+    output written once; f32 instruction slots with a multiply-add as
+    one, exp as 8 plus 2, and the entmax solve and VJP as
     entmax_ops_per_element and entmax_bwd_ops_per_element."""
-    b, f, e, dk, o = 4096, 39, 10, 10, 128
+    b, f, e, dk, o = shape
     bfo, boe, bfe = b * f * o, b * o * e, b * f * e
     keys, gates, cross = bfe * dk, b * f * dk * o, b * o * f * e
-    fwd_ops = (keys + gates + entmax_ops_per_element(2.0) * bfo + bfo
+    fwd_ops = (keys + gates + entmax_ops_per_element(alpha) * bfo + bfo
                + cross + 10 * boe)
     # backward: the forward replay, then dz, dw, ds, the entmax VJP, dkeys,
     # the two terms of de, dWk, dquery and dvalues
-    bwd_ops = (fwd_ops + boe + cross + bfo + entmax_bwd_ops_per_element(2.0)
-               * bfo + gates + cross + keys + keys + gates + 2 * bfo)
+    bwd_ops = (fwd_ops + boe + cross + bfo
+               + entmax_bwd_ops_per_element(alpha) * bfo + gates + cross
+               + keys + keys + gates + 2 * bfo)
     weights = 4 * (e * dk + o * dk + f * o)
     out = {}
     for name, nbytes, nops in (
-            ("K5 arm_fwd", 4 * (bfe + boe) + weights, fwd_ops),
-            ("K6 arm_bwd", 4 * (2 * bfe + boe) + 2 * weights, bwd_ops)):
-        ms, by = bound(nbytes, nops)
-        out[name] = {"bound_ms": ms, "bound_by": by, "bytes": nbytes,
-                     "f32_instruction_slots": nops}
-    log("bounds_unported", **out)
+            ("fwd", 4 * (bfe + boe) + weights, fwd_ops),
+            ("bwd", 4 * (2 * bfe + boe) + 2 * weights, bwd_ops)):
+        out[name] = (*bound(nbytes, nops), nbytes, nops)
+    return out
 
 
 def phase_device():
@@ -413,56 +429,153 @@ def phase_kernel_table_grad():
     return out
 
 
-def run_predict(ckpt, inp, out, expect_rows):
+def arm_inputs(g, shape):
+    """Seeded emb, wk, q, vt and dout of the fused ARM-1h kernels at
+    (B, F, E, dk, O), on the card."""
+    b, f, e, dk, o = shape
+    return (torch.randn((b, f, e), generator=g, device="cuda") * 0.5,
+            torch.randn((e, dk), generator=g, device="cuda"),
+            torch.randn((o, dk), generator=g, device="cuda"),
+            torch.randn((f, o), generator=g, device="cuda") * 0.5,
+            torch.randn((b, o, e), generator=g, device="cuda"))
+
+
+def phase_kernel_arm():
+    """K5 and K6 against their plain versions on the card at the Criteo and
+    Frappe steps, a ragged batch and one row, at four alphas: the forward
+    within rtol/atol 2e-5, the four gradients within rtol 5e-4, atol 5e-5
+    (the JAX package's tolerances for its fused kernel,
+    tests/test_arm_pallas.py), and K6 equal to itself bit for bit. Times
+    at the Criteo step: kernel, plain version and the composed path of
+    --kernels auto (GEMMs, the entmax kernel, einsum and exp, and its
+    autograd backward), which is the yardstick: no single PyTorch call
+    computes this function."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cases = [CRITEO_ARM, FRAPPE_ARM, (4095, 39, 10, 10, 128),
+             (1, 39, 10, 10, 128)]
+    stats = {}
+    for alpha in ALPHAS:
+        ferrs, berrs = [], []
+        for shape in cases:
+            emb, wk, q, vt, dout = arm_inputs(g, shape)
+            out = arm_cuda.arm1h_fwd_kernel(emb, wk, q, vt, alpha)
+            want = arm_cuda.arm1h_fwd_plain(emb, wk, q, vt, alpha)
+            grads = arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha)
+            again = arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha)
+            gwant = arm_cuda.arm1h_bwd_plain(emb, wk, q, vt, dout, alpha)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()),
+                  f"arm1h_fwd kernel non-finite at alpha={alpha} {shape}")
+            ferrs.append(float((out - want).abs().max()))
+            check(torch.allclose(out, want, rtol=2e-5, atol=2e-5),
+                  f"arm1h_fwd kernel vs plain at alpha={alpha} {shape}: "
+                  f"max abs err {ferrs[-1]}")
+            for name, a, b, c in zip(("de", "dwk", "dq", "dvt"), grads,
+                                     again, gwant):
+                berrs.append(float((a - c).abs().max()))
+                check(torch.allclose(a, c, rtol=5e-4, atol=5e-5),
+                      f"arm1h_bwd kernel {name} vs plain at alpha={alpha} "
+                      f"{shape}: max abs err {berrs[-1]}")
+                check(torch.equal(a, b), f"arm1h_bwd kernel {name} not "
+                                         f"bitwise deterministic at "
+                                         f"alpha={alpha} {shape}")
+        emb, wk, q, vt, dout = arm_inputs(g, CRITEO_ARM)
+        leaves = [t.clone().requires_grad_() for t in (emb, wk, q, vt)]
+        composed = arm1h_interaction(leaves[0], leaves[1], leaves[2],
+                                     leaves[3].t(), alpha)
+        times = {
+            "fwd": (lambda: arm_cuda.arm1h_fwd_kernel(emb, wk, q, vt, alpha),
+                    lambda: arm_cuda.arm1h_fwd_plain(emb, wk, q, vt, alpha),
+                    lambda: arm1h_interaction(emb, wk, q, vt.t(), alpha)),
+            "bwd": (lambda: arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout,
+                                                      alpha),
+                    lambda: arm_cuda.arm1h_bwd_plain(emb, wk, q, vt, dout,
+                                                     alpha),
+                    lambda: torch.autograd.grad(composed, leaves, dout,
+                                                retain_graph=True))}
+        bounds = fused_arm_bounds(CRITEO_ARM, alpha)
+        for kind, errs in (("fwd", ferrs), ("bwd", berrs)):
+            kernel, plain, comp = times[kind]
+            ms, plain_ms, composed_ms = (time_ms(kernel), time_ms(plain),
+                                         time_ms(comp))
+            bound_ms, by, nbytes, nops = bounds[kind]
+            stats[(kind, alpha)] = {
+                "ms": ms, "plain_ms": plain_ms, "composed_ms": composed_ms,
+                "bound_ms": bound_ms, "bound_by": by, "max_abs_err": max(errs)}
+            log("kernel_arm", name=f"arm1h_{kind}", alpha=alpha,
+                shape=dict(zip("BFEDO", CRITEO_ARM)), ms=ms,
+                plain_ms=plain_ms, composed_ms=composed_ms,
+                bound_us=bound_ms * 1e3, bound_by=by, bytes=nbytes,
+                f32_instruction_slots=nops, max_abs_err=max(errs),
+                tol="rtol/atol 2e-5" if kind == "fwd" else
+                    "rtol 5e-4, atol 5e-5; bitwise equal to itself",
+                library="none: no single PyTorch call computes the fused "
+                        "ARM-1h interaction; composed_ms is the port's "
+                        "--kernels auto path on the card")
+        del composed, leaves
+    return stats
+
+
+def run_predict(ckpt, inp, out, expect_rows, kernel="entmax_fwd"):
     """predict.main on the card with the kernel counts set to 0 just before
-    and read just after; checks rows, finite scores and launches."""
-    entmax_cuda.LAUNCHES = 0
+    and read just after; checks rows, finite scores and launches: `kernel`
+    once per batch (entmax_fwd under auto, arm1h_fwd under pallas-fused,
+    which predict restores from the checkpoint's sidecar), no other."""
+    zero_counts()
     with contextlib.redirect_stdout(io.StringIO()):    # predict's summary
         summary = predict.main(["--ckpt", ckpt, "--input", inp, "--output",
                                 out, "--device", "cuda"])
-    launches = entmax_cuda.LAUNCHES
+    counts = read_counts()
     scores = np.loadtxt(out, ndmin=1)
     check(summary["rows"] == expect_rows == scores.shape[0],
           f"predict scored {summary['rows']} rows ({scores.shape[0]} "
           f"written), expected {expect_rows}")
     check(bool(np.isfinite(scores).all()), "non-finite scores")
-    check(launches == summary["batches"],
-          f"entmax kernel launched {launches} times over "
-          f"{summary['batches']} batches")
-    return summary, launches
+    want = dict.fromkeys(counts, 0)
+    want[kernel] = summary["batches"]
+    check(counts == want, f"predict launched {counts} over "
+                          f"{summary['batches']} batches, expected {want}")
+    return summary, counts[kernel]
 
 
-def criteo_flags(ensemble):
+def criteo_flags(ensemble, kernels="auto"):
     """The cr_armnet1h preset's flags (armnet_tpu/utils/presets.py), with
     the cr_armnet1h+ tower when the ensemble is on; lr 0.001 for both."""
     flags = ["--model", "armnet_1h", "--mlp_nlayer", "2", "--mlp_nhid", "500",
              "--h", "128", "--alpha", "2.0", "--lr", "0.001", "--nfield",
-             "39", "--nfeat", str(CRITEO_NFEAT), "--batch_size", "4096"]
+             "39", "--nfeat", str(CRITEO_NFEAT), "--batch_size", "4096",
+             "--kernels", kernels]
     if ensemble:
         flags += ["--ensemble", "--dnn_nlayer", "2", "--dnn_nhid", "500"]
     return flags
 
 
-def criteo_config(ensemble):
+def criteo_config(ensemble, kernels="auto"):
     """cr_armnet1h widths (armnet_tpu/utils/presets.py); the ensemble tower
     takes cr_armnet1h+'s 2x500."""
     return ExperimentConfig(
         model="armnet_1h", nfeat=CRITEO_NFEAT, nfield=39, nemb=10, h=128,
         mlp_nlayer=2, mlp_nhid=500, alpha=2.0, ensemble=ensemble,
         dnn_nlayer=2, dnn_nhid=500, batch_size=4096, lr=0.001, seed=SEED,
-        device="cuda")
+        device="cuda", kernels=kernels)
+
+
+def first_batch_logits(ckpt, cfg, inp, device):
+    """The checkpoint's logits of the file's first batch on `device`, on
+    the CPU."""
+    first = next(iter(BatchIterator(LibsvmDataset(inp, cfg.nfield),
+                                    cfg.batch_size)))
+    with torch.inference_mode():
+        return predict.load_model(ckpt, "best", cfg, device)(
+            {k: v.to(device) for k, v in first.items()}).cpu()
 
 
 def first_batch_logit_err(ckpt, cfg, inp):
     """Scores the file's first batch from the checkpoint on the card and on
-    the CPU (the plain entmax); fails unless the logits agree within rtol
-    1e-4, atol 1e-5. Returns the max abs difference."""
-    first = next(iter(BatchIterator(LibsvmDataset(inp, cfg.nfield),
-                                    cfg.batch_size)))
-    with torch.inference_mode():
-        lg = predict.load_model(ckpt, "best", cfg, "cuda")(
-            {k: v.cuda() for k, v in first.items()}).cpu()
-        lc = predict.load_model(ckpt, "best", cfg, "cpu")(first)
+    the CPU (the plain versions); fails unless the logits agree within
+    rtol 1e-4, atol 1e-5. Returns the max abs difference."""
+    lg = first_batch_logits(ckpt, cfg, inp, "cuda")
+    lc = first_batch_logits(ckpt, cfg, inp, "cpu")
     check(bool(torch.isfinite(lg).all()), "non-finite GPU logits")
     err = float((lg - lc).abs().max())
     check(torch.allclose(lg, lc, rtol=1e-4, atol=1e-5),
@@ -493,6 +606,36 @@ def phase_serve_criteo(tmp):
                 ms_per_batch=s["score_seconds"] / s["batches"] * 1e3,
                 auc=s.get("auc"), gpu_vs_cpu_logit_err=err)
     return inp, launches_total
+
+
+def phase_serve_fused(tmp, inp):
+    """predict at Criteo width, ensemble off, from a checkpoint whose
+    sidecar says --kernels pallas-fused: one K5 launch per batch and no
+    entmax launch; the first batch's logits against the CPU's (plain fused
+    versions) and against the auto path's on the card, both within rtol
+    1e-4, atol 1e-5."""
+    cfg = criteo_config(False, "pallas-fused")
+    ckpt = os.path.join(tmp, "ckpt_criteo_fused")
+    save_checkpoint(create_model(cfg, seed=SEED, kernels=cfg.kernels), cfg,
+                    ckpt, "best")
+    out = os.path.join(tmp, "criteo_fused.scores")
+    runs = [run_predict(ckpt, inp, out, 10_000, "arm1h_fwd")
+            for _ in range(4)]              # the first call includes warm-up
+    err = first_batch_logit_err(ckpt, cfg, inp)
+    lf = first_batch_logits(ckpt, cfg, inp, "cuda")
+    la = first_batch_logits(ckpt, cfg.replace(kernels="auto"), inp, "cuda")
+    auto_err = float((lf - la).abs().max())
+    check(torch.allclose(lf, la, rtol=1e-4, atol=1e-5),
+          f"pallas-fused vs auto logits on the card differ by {auto_err}")
+    for i, (s, launches) in enumerate(runs):
+        log("serve_fused", width="cr_armnet1h", ensemble=False,
+            kernels="pallas-fused", call="cold" if i == 0 else "warm",
+            rows=s["rows"], batches=s["batches"], arm1h_fwd_launches=launches,
+            rows_per_s=s["rows"] / s["score_seconds"],
+            ms_per_batch=s["score_seconds"] / s["batches"] * 1e3,
+            auc=s.get("auc"), gpu_vs_cpu_logit_err=err,
+            fused_vs_auto_logit_err=auto_err)
+    return sum(launches for _, launches in runs)
 
 
 def phase_serve_frappe(tmp):
@@ -544,12 +687,15 @@ def phase_profile(inp):
 
 def zero_counts():
     entmax_cuda.LAUNCHES = entmax_cuda.BWD_LAUNCHES = scatter_cuda.LAUNCHES = 0
+    arm_cuda.LAUNCHES = arm_cuda.BWD_LAUNCHES = 0
 
 
 def read_counts():
     return {"entmax_fwd": entmax_cuda.LAUNCHES,
             "entmax_bwd": entmax_cuda.BWD_LAUNCHES,
-            "table_grad": scatter_cuda.LAUNCHES}
+            "table_grad": scatter_cuda.LAUNCHES,
+            "arm1h_fwd": arm_cuda.LAUNCHES,
+            "arm1h_bwd": arm_cuda.BWD_LAUNCHES}
 
 
 def run_cli(argv):
@@ -607,21 +753,25 @@ def plain_versions_on_card():
     """While active, CUDA tensors take the plain PyTorch versions instead of
     the kernels (the wrappers are swapped; no kernel launches)."""
     saved = (entmax_cuda.entmax_kernel, entmax_cuda.entmax_bwd_kernel,
-             scatter_cuda.table_grad)
+             scatter_cuda.table_grad, arm_cuda.arm1h_fwd_kernel,
+             arm_cuda.arm1h_bwd_kernel)
     entmax_cuda.entmax_kernel = entmax_cuda.entmax_plain
     entmax_cuda.entmax_bwd_kernel = entmax_cuda.entmax_bwd_plain
     scatter_cuda.table_grad = scatter_cuda.table_grad_plain
+    arm_cuda.arm1h_fwd_kernel = arm_cuda.arm1h_fwd_plain
+    arm_cuda.arm1h_bwd_kernel = arm_cuda.arm1h_bwd_plain
     try:
         yield
     finally:
         (entmax_cuda.entmax_kernel, entmax_cuda.entmax_bwd_kernel,
-         scatter_cuda.table_grad) = saved
+         scatter_cuda.table_grad, arm_cuda.arm1h_fwd_kernel,
+         arm_cuda.arm1h_bwd_kernel) = saved
 
 
 def one_step_grads(state, cfg, batch, device):
     """(loss, logits, {name: clamped grad}, arm_probe), on the CPU, of one
     train step from the model state `state` on `device`."""
-    model = create_model(cfg, seed=SEED)
+    model = create_model(cfg, seed=SEED, kernels=cfg.kernels)
     model.load_state_dict(state)
     model.to(device)
     batch = {k: v.to(device) for k, v in batch.items()}
@@ -639,10 +789,11 @@ def within(delta, ref, rtol, atol=1e-6):
                                    + rtol * float(ref.norm()))
 
 
-def gpu_vs_cpu_step(ckpt, ensemble, batch):
+def gpu_vs_cpu_step(ckpt, ensemble, batch, kernels="auto", enforce=True):
     """One train step (masked BN forward, BCE, backward, clamp) from the
     checkpoint on the card, on the card with the plain versions swapped in
     (which isolates the kernels' share of any gap), and on the CPU.
+    With enforce=False the same numbers are logged and nothing is held.
 
     The loss is held to 1e-5 relative. Each clamped gradient is held
     norm-wise to atol 1e-6 plus rtol = max(1e-4, 16 u kappa) (arm_probe):
@@ -654,7 +805,7 @@ def gpu_vs_cpu_step(ckpt, ensemble, batch):
     elements outside the elementwise rtol 1e-4, atol 1e-6 and the entmax
     columns whose support differs between card and CPU."""
     state, _ = load_checkpoint(ckpt, "last")
-    cfg = criteo_config(ensemble)
+    cfg = criteo_config(ensemble, kernels)
     lg, yg, gg, (sg, cond) = one_step_grads(state, cfg, batch, "cuda")
     with plain_versions_on_card():
         _, yq, gq, _ = one_step_grads(state, cfg, batch, "cuda")
@@ -698,9 +849,11 @@ def gpu_vs_cpu_step(ckpt, ensemble, batch):
            "support_flip_columns": int(flips.sum()),
            "strict_elementwise_outside": {
                n: v["elements"] for n, v in strict_outside.items()}}
-    log("train_gpu_vs_cpu", ensemble=ensemble, **res,
-        outside_bound=bad, per_param=per_param,
+    log("train_gpu_vs_cpu", ensemble=ensemble, kernels=kernels, ckpt=ckpt,
+        enforced=enforce, **res, outside_bound=bad, per_param=per_param,
         strict_worst=strict_outside)
+    if not enforce:
+        return res
     check(res["loss_rel_gap"] <= 1e-5,
           f"GPU vs CPU train loss: relative gap {res['loss_rel_gap']}")
     check(not bad, f"GPU vs CPU clamped gradients outside norm-wise rtol "
@@ -708,12 +861,12 @@ def gpu_vs_cpu_step(ckpt, ensemble, batch):
     return res
 
 
-def warm_train_rate(ensemble, data, epochs=4):
+def warm_train_rate(ensemble, data, kernels="auto", epochs=4):
     """Host-clock rows/s of whole train epochs (run_epoch over the
     TRAIN_BATCHES batches: host batch assembly, copies, steps) on a fresh
     trainer, the first epoch being the warm-up. Returns (warm rates, warm
     ms per step, the trainer)."""
-    cfg = criteo_config(ensemble)
+    cfg = criteo_config(ensemble, kernels)
     loaders = make_dataloaders("criteo", data, 39, 4096, seed=SEED)
     logger = get_logger(None, to_stdout=False, name="chip_smoke.train_rate")
     trainer = Trainer(cfg, *loaders, logger, seed=SEED)
@@ -734,8 +887,9 @@ def warm_train_rate(ensemble, data, epochs=4):
 
 
 def phase_train(tmp):
-    """cli.main at Criteo width, ensemble off and on: launches, losses, the
-    GPU-vs-CPU step, then the warm rate and the train-step profile."""
+    """cli.main at Criteo width, ensemble off and on under auto, and
+    ensemble off under pallas-fused: launches, losses, the GPU-vs-CPU
+    step, then the warm rate and, ensemble off, the train-step profile."""
     data = os.path.join(tmp, "train_data")
     os.makedirs(os.path.join(data, "criteo"))
     for i, (name, rows) in enumerate((("train", TRAIN_BATCHES * 4096),
@@ -748,15 +902,21 @@ def phase_train(tmp):
     first = next(iter(BatchIterator(LibsvmDataset(
         os.path.join(data, "criteo", "train.libsvm"), 39), 4096)))
     totals = dict.fromkeys(read_counts(), 0)
-    for ensemble in (False, True):
-        exp = f"criteo_ens{int(ensemble)}"
-        _, counts, seconds = run_cli(criteo_flags(ensemble) + [
+    for ensemble, kernels in ((False, "auto"), (True, "auto"),
+                              (False, "pallas-fused")):
+        fused = kernels == "pallas-fused"
+        exp = f"criteo_ens{int(ensemble)}" + ("_fused" if fused else "")
+        _, counts, seconds = run_cli(criteo_flags(ensemble, kernels) + [
             "--dataset", "criteo", "--data_dir", data, "--epoch", "2",
             "--patience", "5", "--report_freq", "1", "--seed", str(SEED),
             "--exp_name", exp, "--log_dir", os.path.join(tmp, "log"),
             "--ckpt_dir", os.path.join(tmp, "ckpt"), "--device", "cuda"])
         want = {"entmax_fwd": steps + evals, "entmax_bwd": steps,
-                "table_grad": steps * (2 if ensemble else 1)}
+                "table_grad": steps * (2 if ensemble else 1),
+                "arm1h_fwd": 0, "arm1h_bwd": 0}
+        if fused:
+            want.update(entmax_fwd=0, entmax_bwd=0, arm1h_fwd=steps + evals,
+                        arm1h_bwd=steps)
         check(counts == want, f"train launches {counts}, expected {want} "
                               f"({steps} steps, {evals} eval batches)")
         losses, means = train_losses(os.path.join(
@@ -772,16 +932,26 @@ def phase_train(tmp):
         check([r["epoch"] for r in rows] == [0, 1],
               f"metrics.jsonl rows {rows}")
         ckpt = os.path.join(tmp, "ckpt", f"{exp}_{SEED}")
-        # the run's best checkpoint scores through predict on the card
+        # the run's best checkpoint scores through predict on the card,
+        # which restores the run's --kernels from the sidecar
+        score_kernel = "arm1h_fwd" if fused else "entmax_fwd"
         scored, score_launches = run_predict(
             ckpt, os.path.join(data, "criteo", "valid.libsvm"),
-            os.path.join(tmp, f"{exp}.scores"), EVAL_ROWS)
-        gap = gpu_vs_cpu_step(ckpt, ensemble, first)
-        rates, ms_step, trainer = warm_train_rate(ensemble, data)
-        log("train", width="cr_armnet1h", ensemble=ensemble, steps=steps,
-            eval_batches=evals, launches=counts,
-            per_step={k: counts[k] / steps for k in ("entmax_bwd",
-                                                     "table_grad")},
+            os.path.join(tmp, f"{exp}.scores"), EVAL_ROWS, score_kernel)
+        if not fused:
+            gap = gpu_vs_cpu_step(ckpt, ensemble, first)
+        else:
+            # held from the state the auto run's step was held at, so the
+            # two kernel choices are compared at one conditioning; the
+            # fused run's own state is logged beside it
+            gap = gpu_vs_cpu_step(state_ckpt, ensemble, first, kernels)
+            gpu_vs_cpu_step(ckpt, ensemble, first, kernels, enforce=False)
+        if not ensemble and not fused:
+            state_ckpt = ckpt
+        rates, ms_step, trainer = warm_train_rate(ensemble, data, kernels)
+        log("train", width="cr_armnet1h", ensemble=ensemble, kernels=kernels,
+            steps=steps, eval_batches=evals, launches=counts,
+            per_step={k: counts[k] / steps for k in counts},
             cli_seconds=seconds, first_step_loss=flat[0],
             valid_auc=[r["valid"] for r in rows],
             predict_best={"rows": scored["rows"], "auc": scored.get("auc"),
@@ -793,15 +963,15 @@ def phase_train(tmp):
                 "max_grad_rel_gap", "support_flip_columns")})
         for k in totals:
             totals[k] += counts[k]
-        totals["entmax_fwd"] += score_launches
+        totals[score_kernel] += score_launches
         if not ensemble:
-            phase_profile_train(trainer, first)
+            phase_profile_train(trainer, first, kernels)
         del trainer
         torch.cuda.empty_cache()
     return totals
 
 
-def phase_profile_train(trainer, batch):
+def phase_profile_train(trainer, batch, kernels):
     """torch.profiler over one warm Criteo-width train step (ensemble off),
     the batch's copy to the card included: device time by kernel and the
     device's busy share of the step's wall time."""
@@ -827,7 +997,7 @@ def phase_profile_train(trainer, batch):
               and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
-    log("profile_train", wall_ms=wall_ms, device_ms=busy_ms,
+    log("profile_train", kernels=kernels, wall_ms=wall_ms, device_ms=busy_ms,
         device_busy_share=busy_ms / wall_ms,
         top=[[e.key[:80], e.count, e.self_device_time_total / 1e3]
              for e in top])
@@ -861,18 +1031,28 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    fused_arm_bounds()
     fwd = phase_kernel()[2.0]                 # cr_armnet1h's alpha
     bwd = phase_kernel_bwd()[2.0]
     tg = phase_kernel_table_grad()
+    arm = phase_kernel_arm()
     with tempfile.TemporaryDirectory() as tmp:
         inp, serve = phase_serve_criteo(tmp)
+        serve_fused = phase_serve_fused(tmp, inp)
         serve += phase_serve_frappe(tmp)
         phase_profile(inp)
         train = phase_train(tmp)
         frappe = phase_frappe_train(tmp)
     launches = {k: train[k] + frappe[k] for k in train}
     launches["entmax_fwd"] += serve
+    launches["arm1h_fwd"] += serve_fused
+    arm_lines = [
+        {"name": f"arm1h_{kind}", "route": "cuda",
+         "source": "armnet_tpu_torch/kernels/csrc/arm1h.cu",
+         "replaces": f"armnet_tpu/kernels/arm_pallas.py:{line}",
+         "launches": launches[f"arm1h_{kind}"],
+         **arm[(kind, 2.0)], "library_ms": None,
+         "shape": dict(zip("BFEDO", CRITEO_ARM)), "alpha": 2.0}
+        for kind, line in (("fwd", 184), ("bwd", 211))]
 
     crit = tg["criteo_batch"]
     print(json.dumps({"kernels": [
@@ -906,6 +1086,7 @@ def main():
          "table_grad_ms_with_sort": crit["table_grad_ms"],
          "all_ids_equal_ms": tg["all_ids_equal"]["ms"],
          "shape": [4096 * 39, 10], "nrows": CRITEO_NFEAT},
+        *arm_lines,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

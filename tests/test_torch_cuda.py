@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the entmax forward and backward and the table gradient, and one train step
-on the card against the same step on the CPU.
+the entmax forward and backward, the table gradient and the fused ARM-1h
+forward and backward, and one train step on the card against the same step
+on the CPU, through the composed and the fused interaction.
 
 Skipped where CUDA is absent. On a GPU machine, from the repository root:
 
@@ -15,10 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from armnet_tpu_torch.kernels import entmax_cuda, scatter_cuda
+from armnet_tpu_torch.kernels import arm_cuda, entmax_cuda, scatter_cuda
 from armnet_tpu_torch.models import create_model
 from armnet_tpu_torch.models.config import ModelConfig
 from armnet_tpu_torch.ops.entmax import entmax_bisect
+from armnet_tpu_torch.ops.interaction import arm1h_fused
 from armnet_tpu_torch.train.step import clamp_grads, forward_loss
 
 pytestmark = pytest.mark.cuda
@@ -82,12 +84,13 @@ def test_entmax_kernel_counts_launches_and_rejects(cuda):
     assert entmax_cuda.LAUNCHES == before + 1
 
 
+@pytest.mark.parametrize("kernels", ["auto", "pallas-fused"])
 @pytest.mark.parametrize("ensemble", [False, True])
-def test_armnet1h_gpu_matches_cpu(cuda, ensemble):
+def test_armnet1h_gpu_matches_cpu(cuda, ensemble, kernels):
     cfg = ModelConfig(model="armnet_1h", nfeat=1000, nfield=39, nemb=10,
                       h=128, mlp_nlayer=2, mlp_nhid=64, alpha=2.0,
                       ensemble=ensemble)
-    model = create_model(cfg, seed=1).eval()
+    model = create_model(cfg, seed=1, kernels=kernels).eval()
     rng = np.random.RandomState(0)
     batch = {"id": torch.from_numpy(rng.randint(0, 1000, (256, 39))),
              "value": torch.from_numpy(rng.rand(256, 39).astype(np.float32))}
@@ -198,12 +201,15 @@ def _u_kappa(model, batch):
         return float((x.mean(1).abs() / x.std(1)).max()) * 2.0 ** -24
 
 
+@pytest.mark.parametrize("kernels", ["auto", "pallas-fused"])
 @pytest.mark.parametrize("ensemble", [False, True])
-def test_train_step_gpu_matches_cpu(cuda, ensemble):
+def test_train_step_gpu_matches_cpu(cuda, ensemble, kernels):
     """One masked train-mode step of armnet_1h (padded batch, BCE, clamp)
     from the same weights: the loss agrees to 1e-5 relative, and every
     clamped gradient norm-wise to atol 1e-6 plus rtol max(1e-4, 16 u kappa)
-    (the conditioning of arm_bn's input; see chip_smoke.gpu_vs_cpu_step)."""
+    (the conditioning of arm_bn's input; see chip_smoke.gpu_vs_cpu_step).
+    Under pallas-fused the card's step launches K5 and K6 once each and no
+    entmax kernel."""
     cfg = ModelConfig(model="armnet_1h", nfeat=1000, nfield=39, nemb=10,
                       h=128, mlp_nlayer=2, mlp_nhid=64, alpha=2.0,
                       ensemble=ensemble, dnn_nlayer=2, dnn_nhid=64)
@@ -215,11 +221,17 @@ def test_train_step_gpu_matches_cpu(cuda, ensemble):
     batch["mask"][200:] = 0.0
     out = []
     for dev in ("cpu", cuda):
-        model = create_model(cfg, seed=1).to(dev)
+        model = create_model(cfg, seed=1, kernels=kernels).to(dev)
         b = {k: v.to(dev) for k, v in batch.items()}
         cond = _u_kappa(model, b)
+        before = (entmax_cuda.LAUNCHES, entmax_cuda.BWD_LAUNCHES,
+                  arm_cuda.LAUNCHES, arm_cuda.BWD_LAUNCHES)
         loss, _ = forward_loss(model, b)
         loss.backward()
+        if dev != "cpu" and kernels == "pallas-fused":
+            after = (entmax_cuda.LAUNCHES, entmax_cuda.BWD_LAUNCHES,
+                     arm_cuda.LAUNCHES, arm_cuda.BWD_LAUNCHES)
+            assert [a - b for a, b in zip(after, before)] == [0, 0, 1, 1]
         clamp_grads(model.parameters(), 1.0)
         out.append((loss.item(), cond, {n: p.grad.cpu()
                                         for n, p in model.named_parameters()}))
@@ -230,3 +242,74 @@ def test_train_step_gpu_matches_cpu(cuda, ensemble):
         gap = float((gg[name] - ref).norm())
         assert gap <= 1e-6 * ref.numel() ** 0.5 + rtol * float(ref.norm()), \
             (name, gap, float(ref.norm()), rtol)
+
+
+# (B, F, E, dk, O): the Criteo and Frappe steps at a cut batch, a ragged
+# batch, small widths with O below and above the block's 128 threads, one
+# row, and F at each register bucket's edge (16, 40)
+ARM_SHAPES = [(256, 39, 10, 10, 128), (257, 10, 10, 10, 128),
+              (24, 7, 6, 6, 9), (5, 16, 4, 3, 200), (1, 39, 10, 10, 128),
+              (9, 40, 5, 7, 33), (3, 17, 4, 4, 130)]
+
+
+def _arm_inputs(cuda, shape, seed=0):
+    b, f, e, dk, o = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn((b, f, e), generator=g, device=cuda) * 0.5,
+            torch.randn((e, dk), generator=g, device=cuda),
+            torch.randn((o, dk), generator=g, device=cuda),
+            torch.randn((f, o), generator=g, device=cuda) * 0.5,
+            torch.randn((b, o, e), generator=g, device=cuda))
+
+
+@pytest.mark.parametrize("shape", ARM_SHAPES)
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_arm1h_fwd_kernel_matches_plain(cuda, alpha, shape):
+    emb, wk, q, vt, _ = _arm_inputs(cuda, shape)
+    got = arm_cuda.arm1h_fwd_kernel(emb, wk, q, vt, alpha)
+    want = arm_cuda.arm1h_fwd_plain(emb, wk, q, vt, alpha)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", ARM_SHAPES)
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_arm1h_bwd_kernel_matches_plain(cuda, alpha, shape):
+    """The four gradients at the JAX package's tolerances for its fused
+    kernel (rtol 5e-4, atol 5e-5), and bit for bit run to run."""
+    emb, wk, q, vt, dout = _arm_inputs(cuda, shape, seed=1)
+    got = arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha)
+    again = arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha)
+    want = arm_cuda.arm1h_bwd_plain(emb, wk, q, vt, dout, alpha)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("de", "dwk", "dq", "dvt"), got, again, want):
+        torch.testing.assert_close(a, c, rtol=5e-4, atol=5e-5, msg=name)
+        assert torch.equal(a, b), name
+
+
+def test_arm1h_kernels_count_launches_and_reject(cuda):
+    emb, wk, q, vt, dout = _arm_inputs(cuda, (8, 39, 10, 10, 128))
+    emb.requires_grad_()
+    before = (arm_cuda.LAUNCHES, arm_cuda.BWD_LAUNCHES, entmax_cuda.LAUNCHES,
+              entmax_cuda.BWD_LAUNCHES)
+    arm1h_fused(emb, wk, q, vt.t(), 2.0).backward(dout)
+    assert (arm_cuda.LAUNCHES, arm_cuda.BWD_LAUNCHES, entmax_cuda.LAUNCHES,
+            entmax_cuda.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1,
+                                          before[2], before[3])
+    emb = emb.detach()
+    fwd = arm_cuda.arm1h_fwd_kernel
+    with pytest.raises(ValueError, match="CUDA"):
+        fwd(emb.cpu(), wk.cpu(), q.cpu(), vt.cpu(), 2.0)
+    with pytest.raises(TypeError):
+        fwd(emb.double(), wk, q, vt, 2.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(emb.transpose(0, 1).contiguous().transpose(0, 1), wk, q, vt, 2.0)
+    with pytest.raises(ValueError, match="fields"):
+        fwd(torch.zeros((2, 41, 10), device=cuda), wk, q,
+            torch.zeros((41, 128), device=cuda), 2.0)
+    with pytest.raises(ValueError, match="alpha"):
+        fwd(emb, wk, q, vt, 1.0)
+    with pytest.raises(ValueError, match="fit"):
+        arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout[:4], 2.0)
+    assert arm_cuda.LAUNCHES == before[0] + 1
+    assert arm_cuda.BWD_LAUNCHES == before[1] + 1

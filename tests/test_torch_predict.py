@@ -96,17 +96,36 @@ def test_device_defaults_to_cuda_and_never_falls_back(served):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_bf16_and_pallas_kernels_raise(served):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predict.main(_argv(served, "--bf16"))
+@pytest.mark.parametrize("case", ["bf16", "xla", "pallas", "pallas-fused"])
+def test_bf16_and_pallas_kernels_raise(served, case):
+    """--bf16 and a sidecar's "kernels": "xla" still raise; a sidecar's
+    "pallas" (the per-op kernels) and "pallas-fused" (the fused ARM-1h
+    kernels) now score, with the JAX model's probabilities."""
+    if case == "bf16":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            predict.main(_argv(served, "--bf16"))
+        return
     meta_path = os.path.join(served["root"], "best.meta.json")
     with open(meta_path) as f:
         meta = json.load(f)
-    meta["config"]["kernels"] = "pallas"
+    meta["config"]["kernels"] = case
     with open(meta_path, "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="auto"):
-        predict.main(_argv(served))
+    if case == "xla":
+        with pytest.raises(NotImplementedError, match="xla"):
+            predict.main(_argv(served))
+        return
+    out = str(served["tmp"] / f"{case}.scores")
+    summary = predict.main(_argv(served, "--output", out))
+    assert summary["rows"] == NROWS
+    lg = served["logits"]
+    if served["noutput"] == 1:
+        want = 1.0 / (1.0 + np.exp(-lg))
+    else:
+        e = np.exp(lg - lg.max(-1, keepdims=True))
+        want = e / e.sum(-1, keepdims=True)
+    np.testing.assert_allclose(np.loadtxt(out, ndmin=2).reshape(want.shape),
+                               want, atol=1e-5)
 
 
 def test_checkpoint_round_trip(tmp_path):

@@ -9,8 +9,8 @@ inputs from seeded numpy and weights bridged from the JAX init.
   * one step's gradients of every parameter against jax.grad of the JAX
     train step's loss, and the running statistics it leaves;
   * a 25-step trajectory against armnet_tpu.train.step.make_train_step,
-    the JAX side through its default path and through the Pallas entmax
-    kernels in interpret mode;
+    the JAX side through its default path, through the Pallas entmax
+    kernels and through the fused ARM-1h kernels in interpret mode;
   * checkpoint round trip, --resume, and the CLI end to end.
 """
 
@@ -104,10 +104,10 @@ def _nest(flat):
     return out
 
 
-def init_pair(kw, seed):
-    """(JAX model, JAX params, JAX batch_stats, port model) from one JAX
-    init with embeddings widened to [-0.5, 0.5] (so the exponential
-    neurons leave 1) and random running statistics."""
+def init_pair(kw, seed, kernels="auto"):
+    """(JAX model, JAX params, JAX batch_stats, port model under
+    `kernels`) from one JAX init with embeddings widened to [-0.5, 0.5]
+    (so the exponential neurons leave 1) and random running statistics."""
     jm = jax_create_model(JaxModelConfig(**kw))
     b0 = make_batches(1, seed)[0]
     v = jm.init(jax.random.PRNGKey(seed),
@@ -123,7 +123,7 @@ def init_pair(kw, seed):
             arr[...] = rng.uniform(0.5, 1.5, arr.shape)
     nested = _nest(flat)
     cfg = ModelConfig(**kw)
-    model = create_model(cfg)
+    model = create_model(cfg, kernels=kernels)
     model.load_state_dict(from_jax_arrays(flat, cfg))
     return jm, nested["params"], nested["batch_stats"], model
 
@@ -270,13 +270,15 @@ def _run_jax(jm, params, stats, batches, backend):
 
 @pytest.mark.parametrize("backend,ensemble", [("auto", False),
                                               ("pallas", False),
-                                              ("auto", True)])
+                                              ("auto", True),
+                                              ("pallas-fused", False)])
 def test_trajectory_matches_jax_train_step(backend, ensemble):
     """25 identical clamp+Adam steps (the last batch padded) from the same
     weights: the loss curves agree within 5e-4 and the final eval logits
-    within 1e-2, the pattern of tests/test_trajectory_parity.py."""
+    within 1e-2, the pattern of tests/test_trajectory_parity.py. The port
+    runs under the same kernel choice as the JAX side."""
     kw = small_kw(ensemble=ensemble)
-    jm, params, stats, model = init_pair(kw, seed=3)
+    jm, params, stats, model = init_pair(kw, seed=3, kernels=backend)
     batches = make_batches(25, seed=4, pad_last=24)
     lj, yj = _run_jax(jm, params, stats, batches, backend)
 
