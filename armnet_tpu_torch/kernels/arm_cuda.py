@@ -1,6 +1,6 @@
-"""Wrappers of the fused ARM-1h CUDA kernels (csrc/arm1h.cu): the forward,
+"""Wrappers of the fused ARM-1h CUDA kernels: the forward (csrc/arm1h.cu),
 port of the Pallas `_fwd_call` -> `_fwd_kernel` (K5), and the recompute
-backward, port of `_bwd_call` -> `_bwd_kernel` (K6), of
+backward (csrc/arm1h_bwd.cu), port of `_bwd_call` -> `_bwd_kernel` (K6), of
 armnet_tpu/kernels/arm_pallas.py.
 
   arm1h_fwd_kernel / arm1h_fwd_plain   emb [B, F, E], wk [E, dk], q [O, dk],
@@ -34,14 +34,14 @@ __all__ = ["arm1h_fwd_kernel", "arm1h_fwd_plain", "arm1h_bwd_kernel",
 # each right after a successful launch)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-MAX_F = 40                 # largest register bucket in csrc/arm1h.cu
+MAX_F = 40                 # largest register bucket of the kernels
 SMEM_BYTES = 232_448       # shared memory a block can use on Hopper
 BWD_BLOCKS_PER_SM = 2      # K6's persistent grid
 
 
 def _gates(emb, wk, q):
     """(keys [B, F, dk], gates [B, F, O]), each summed product by product
-    in index order, as csrc/arm1h.cu sums them, so that the kernels solve
+    in index order, as csrc/arm1h.cuh sums them, so that the kernels solve
     the same gates bit for bit: at alpha > 2 the solver's Newton budget
     leaves rare columns unconverged, and there one ulp of a gate moves y
     by up to ~1e-2."""
@@ -152,8 +152,7 @@ def arm1h_fwd_kernel(emb, wk, q, vt, alpha, n_iter=50):
     with torch.cuda.device(emb.device):
         err = fn(emb.data_ptr(), wk.data_ptr(), q.data_ptr(), vt.data_ptr(),
                  out.data_ptr(), b, f, e, dk, o, mode, steps, dk ** -0.5,
-                 am1, inv_am1, c_hi,
-                 torch.cuda.current_stream(emb.device).cuda_stream)
+                 am1, inv_am1, c_hi, build.raw_stream(emb.device))
     if err != 0:
         raise RuntimeError(f"arm1h forward kernel launch failed: cudaError "
                            f"{err}")
@@ -186,7 +185,7 @@ def arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha, n_iter=50):
                           device=dev)
     mode, steps, am1, inv_am1, c_hi = _solver_args(alpha, f, n_iter)
     fn = build.function(
-        "arm1h", "armnet_arm1h_bwd",
+        "arm1h_bwd", "armnet_arm1h_bwd",
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
         + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(dev):
@@ -194,8 +193,7 @@ def arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha, n_iter=50):
                  q.data_ptr(), vt.data_ptr(), de.data_ptr(),
                  partial.data_ptr(), grads.data_ptr(), b, f, e, dk, o,
                  blocks, mode, g_mode_id(alpha), steps, dk ** -0.5, am1,
-                 inv_am1, c_hi, 2.0 - alpha,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 inv_am1, c_hi, 2.0 - alpha, build.raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"arm1h backward kernel launch failed: cudaError "
                            f"{err}")

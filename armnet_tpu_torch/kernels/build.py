@@ -16,7 +16,7 @@ import subprocess
 import time
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "sources", "build_all", "build_log",
-           "load", "function"]
+           "load", "function", "raw_stream"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -59,7 +59,8 @@ def _lib_path(name):
 
 
 def _start(name):
-    """Start nvcc for one source; None if its library is already built."""
+    """Start nvcc for one source, its output going to a log file; None if
+    its library is already built."""
     out = _lib_path(name)
     if os.path.exists(out):
         return None
@@ -67,16 +68,18 @@ def _start(name):
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
            os.path.join(CSRC_DIR, f"{name}.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), tmp, out
+    with open(tmp + ".log", "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    return proc, tmp, out
 
 
 def _finish(name, job):
+    """Keep an ended nvcc's log beside the library; raise if it failed."""
     proc, tmp, out = job
-    log, _ = proc.communicate()
-    with open(out + ".log", "w") as f:
-        f.write(log)
-    if proc.returncode != 0:
+    os.replace(tmp + ".log", out + ".log")
+    with open(out + ".log") as f:
+        log = f.read()
+    if proc.wait() != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)
 
@@ -87,12 +90,14 @@ def build_all(names=None):
     names = sources() if names is None else names
     t0 = time.perf_counter()
     jobs = {n: _start(n) for n in names}
-    secs = {}
+    secs = {n: 0.0 for n, job in jobs.items() if job is None}
     try:
-        for n, job in jobs.items():
-            if job is not None:
-                _finish(n, job)
-            secs[n] = time.perf_counter() - t0 if job is not None else 0.0
+        while len(secs) < len(jobs):          # each in the order it ends
+            for n, job in jobs.items():
+                if n not in secs and job[0].poll() is not None:
+                    secs[n] = time.perf_counter() - t0
+                    _finish(n, job)
+            time.sleep(0.05)
     finally:
         for job in jobs.values():
             if job is not None and job[0].poll() is None:
@@ -116,11 +121,20 @@ def load(name):
     return lib
 
 
-def function(source, name, argtypes):
-    """ctypes function `name` of csrc/<source>.cu, returning an int (the
-    cudaError_t), with its argument types set; built at first use."""
+def function(source, name, argtypes, restype=ctypes.c_int):
+    """ctypes function `name` of csrc/<source>.cu with its argument and
+    return types set (an int, the cudaError_t, unless said otherwise);
+    built at first use."""
     fn = getattr(load(source), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return fn
+
+
+def raw_stream(device):
+    """The handle (an int) of PyTorch's current CUDA stream on `device`,
+    without making a torch.cuda.Stream object."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -5,8 +5,8 @@ ExperimentConfig.kernels through models.create_model into the ARM layer.
   auto, pallas   the per-op kernels: the entmax kernel inside the composed
                  ARM-1h chain (GEMMs, entmax, einsum, exp)
   pallas-fused   the ARM-1h interaction as one fused kernel pair
-                 (kernels/arm_cuda.py, csrc/arm1h.cu), for a static
-                 alpha > 1
+                 (kernels/arm_cuda.py, csrc/arm1h.cu, arm1h_bwd.cu), for a
+                 static alpha > 1
   xla            the JAX package's pure-XLA path; the CLI refuses it (on
                  the card every path runs this repository's kernels)
 

@@ -1,27 +1,9 @@
 // alpha-entmax forward and backward for Hopper (sm_90a): one thread per
 // column.
 //
-// Replaces the Pallas TPU kernels armnet_tpu/kernels/entmax_pallas.py
-// `_fwd_kernel` (the general [d, rows] entry, K1) and `_mid_fwd_kernel`
-// (the [B, d, C] mid-axis entry, K2) with ONE kernel over an (outer, d,
-// inner) view of a contiguous tensor: the normalized axis has length d and
-// stride `inner`. K2 is outer=B, d=F, inner=C; K1 is any axis, with no
-// relayout on either side.
-//
-// What it computes: exactly armnet_tpu_torch/kernels/entmax_common.py
-// `solve_entmax_axis0` at its production budgets, through the column solve
-// of entmax_solver.cuh (MODE picks the solver branch; see there).
-//
-// What bounds it on an H100: at the armnet_1h serving shape [4096, 39, 128]
-// f32 it must read 81.8 MB and write 81.8 MB: 163.6 MB at 3.35 TB/s is
-// about 49 us. The alpha=2 bisection adds about 31 x 39 subtract/max/add
-// per column (~2.2e9 f32 instructions, ~66 us at 33.5e12 non-FMA f32
-// instructions/s), so operations bound it, with bytes close behind. The
-// design does the one read and one write of device memory and nothing
-// else: each thread keeps its column's d values in registers (a
-// compile-time MAXD bucket with a masked tail) for the whole solve, and
-// neighbouring threads take neighbouring columns, so each of the d loads
-// and stores is coalesced across the warp.
+// The forward (K1/K2) is entmax_fwd.cuh's kernel; this source instantiates
+// it in the bisection modes (alpha 2, 1.5, 4/3), and entmax_fastpow.cu and
+// entmax_newton.cu in the powf modes.
 //
 // The backward (`entmax_bwd_kernel`) replaces the Pallas `_bwd_kernel`
 // (general entry, K3) and `_mid_bwd_kernel` (mid-axis entry, K4) the same
@@ -42,35 +24,13 @@
 // Numerics: see entmax_solver.cuh (no --use_fast_math; NaN columns stay
 // NaN; __fmul_rn where the plain version rounds on its own).
 
-#include "entmax_solver.cuh"
+#include "entmax_fwd.cuh"
 
 namespace {
 
 using namespace armnet;
 
-constexpr int kThreads = 128;
-
-template <int MAXD, int MODE>
-__global__ void __launch_bounds__(kThreads)
-entmax_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
-                  int64_t outer, int d, int64_t inner, int n_iter, float am1,
-                  float inv_am1, float c_hi) {
-  const int64_t col = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (col >= outer * inner) return;
-  const int64_t o = col / inner;
-  const int64_t base = o * d * inner + (col - o * inner);
-  const float* xp = x + base;
-  float* yp = y + base;
-
-  float v[MAXD];
-#pragma unroll
-  for (int k = 0; k < MAXD; ++k)
-    if (k < d) v[k] = __fmul_rn(xp[k * inner], am1);
-  entmax_column<MAXD, MODE>(v, d, n_iter, inv_am1, c_hi);
-#pragma unroll
-  for (int k = 0; k < MAXD; ++k)
-    if (k < d) yp[k * inner] = v[k];
-}
+constexpr int kThreads = 128;      // the backward's block
 
 template <int MAXD, int GMODE>
 __global__ void __launch_bounds__(kThreads)
@@ -124,53 +84,29 @@ cudaError_t launch_bwd(int gmode, const float* y, const float* dy, float* dx,
   return cudaGetLastError();
 }
 
-template <int MAXD>
-cudaError_t launch(int mode, const float* x, float* y, int64_t outer, int d,
-                   int64_t inner, int n_iter, float am1, float inv_am1,
-                   float c_hi, cudaStream_t stream) {
-  const int64_t cols = outer * inner;
-  const dim3 grid((unsigned)((cols + kThreads - 1) / kThreads));
-  switch (mode) {
-#define ENTMAX_CASE(M)                                                      \
-  case M:                                                                   \
-    entmax_fwd_kernel<MAXD, M><<<grid, kThreads, 0, stream>>>(              \
-        x, y, outer, d, inner, n_iter, am1, inv_am1, c_hi);                 \
-    break;
-    ENTMAX_CASE(BISECT1)
-    ENTMAX_CASE(BISECT2)
-    ENTMAX_CASE(BISECT3)
-    ENTMAX_CASE(FASTPOW)
-    ENTMAX_CASE(NEWTON)
-#undef ENTMAX_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // y = entmax over the middle axis of the contiguous (outer, d, inner) view
-// of x. Returns the cudaError_t of the launch (0 on success). d <= 64.
+// of x, in a bisection mode (BISECT1/2/3; any other is refused) and the
+// register bucket `bucket` (a multiple of 8 from 8 to 64, d <= bucket; any
+// other is refused). Returns the cudaError_t of the launch (0 on success).
 extern "C" int armnet_entmax_fwd(const float* x, float* y, long long outer,
-                                 int d, long long inner, int mode, int n_iter,
-                                 float am1, float inv_am1, float c_hi,
-                                 void* stream) {
+                                 int d, long long inner, int bucket, int mode,
+                                 int n_iter, float am1, float inv_am1,
+                                 float c_hi, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d < 1 || outer * inner < 1) return (int)cudaErrorInvalidValue;
-  if (d <= 8)
-    return (int)launch<8>(mode, x, y, outer, d, inner, n_iter, am1, inv_am1,
-                          c_hi, s);
-  if (d <= 16)
-    return (int)launch<16>(mode, x, y, outer, d, inner, n_iter, am1, inv_am1,
-                           c_hi, s);
-  if (d <= 32)
-    return (int)launch<32>(mode, x, y, outer, d, inner, n_iter, am1, inv_am1,
-                           c_hi, s);
-  if (d <= 64)
-    return (int)launch<64>(mode, x, y, outer, d, inner, n_iter, am1, inv_am1,
-                           c_hi, s);
-  return (int)cudaErrorInvalidValue;
+  switch (mode) {
+#define ENTMAX_MODE(M)                                                      \
+  case M:                                                                   \
+    return (int)launch_fwd<M>(x, y, outer, d, inner, bucket, n_iter, am1,   \
+                              inv_am1, c_hi, s);
+    ENTMAX_MODE(BISECT1)
+    ENTMAX_MODE(BISECT2)
+    ENTMAX_MODE(BISECT3)
+#undef ENTMAX_MODE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // dx = the entmax VJP over the middle axis of the contiguous (outer, d,

@@ -1,5 +1,6 @@
 // The alpha-entmax column solve and the pieces of its VJP, shared by the
-// entmax kernels (entmax.cu) and the fused ARM-1h kernels (arm1h.cu).
+// entmax kernels (entmax_fwd.cuh, entmax.cu) and the fused ARM-1h kernels
+// (arm1h.cu, arm1h_bwd.cu).
 //
 // What it computes: exactly armnet_tpu_torch/kernels/entmax_common.py
 // `solve_entmax_axis0` (itself a copy of the JAX solver) at its production
@@ -50,13 +51,25 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 
 __device__ __forceinline__ float clamp0(float z) { return max_nan(z, 0.0f); }
 
+// a - b rounded, then clamped to [0, 1]: one instruction
+__device__ __forceinline__ float sub_sat(float a, float b) {
+  float r;
+  asm("sub.rn.sat.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// z^(1/(alpha-1)) for z >= 0
 template <int MODE>
-__device__ __forceinline__ float pow_inv(float z, float inv_am1) {
-  z = clamp0(z);
+__device__ __forceinline__ float pow_pos(float z, float inv_am1) {
   if (MODE == BISECT1) return z;
   if (MODE == BISECT2) return __fmul_rn(z, z);
   if (MODE == BISECT3) return __fmul_rn(__fmul_rn(z, z), z);
   return powf(z, inv_am1);
+}
+
+template <int MODE>
+__device__ __forceinline__ float pow_inv(float z, float inv_am1) {
+  return pow_pos<MODE>(clamp0(z), inv_am1);
 }
 
 // Blinn fast-pow, as entmax_common._fast_pow: clamp in f32 before the
@@ -71,55 +84,76 @@ __device__ __forceinline__ float fast_pow(float z, float inv_am1) {
 
 // alpha-entmax of one column. On entry v[k], k < d, holds the column
 // already multiplied by alpha-1; on return it holds the entmax output.
-template <int MAXD, int MODE>
+//
+// PAD: v[k] for d <= k < MAXD holds -inf, and the loops run over all MAXD
+// entries with no test of k < d. A padded entry changes nothing: it never
+// wins the max, and every term it adds is pow_inv(-inf - tau) = +0 (or
+// fast_pow's 0, or z = 0 in Newton's sums), and s + 0.0f == s for the sums
+// here, which start at +0 and add terms >= 0. Where tau is not finite the
+// column's real entries are NaN already.
+// With PAD the bisection branches also take max(v - tau, 0) as sub_sat(v,
+// tau), one instruction instead of two, where fl(mx - tau_lo) <= 1: every
+// tau they try is >= tau_lo and every v <= mx, so fl(v - tau) <=
+// fl(mx - tau_lo) <= 1 (rounding is monotone), and the clamp at 1 never
+// bites; the bits are those of the max. A column with a NaN or an infinity
+// fails the test and keeps the max.
+template <int MAXD, int MODE, bool PAD = false>
 __device__ __forceinline__ void entmax_column(float (&v)[MAXD], int d,
                                               int n_iter, float inv_am1,
                                               float c_hi) {
   float mx = -INFINITY;
 #pragma unroll
   for (int k = 0; k < MAXD; ++k)
-    if (k < d) mx = max_nan(mx, v[k]);
+    if (PAD || k < d) mx = max_nan(mx, v[k]);
+  float tau_lo = mx - 1.0f;     // f(tau_lo) >= 0
+  float tau_hi = mx - c_hi;     // f(tau_hi) <= 0
+  const bool sat = PAD && mx - tau_lo <= 1.0f;
 
   // f(tau) = sum pow_inv(v - tau) - 1
   auto f_val = [&](float tau) {
     float s = 0.0f;
+    if (sat) {
 #pragma unroll
-    for (int k = 0; k < MAXD; ++k)
-      if (k < d) s += pow_inv<MODE>(v[k] - tau, inv_am1);
+      for (int k = 0; k < MAXD; ++k)
+        s += pow_pos<MODE>(sub_sat(v[k], tau), inv_am1);
+    } else {
+#pragma unroll
+      for (int k = 0; k < MAXD; ++k)
+        if (PAD || k < d) s += pow_inv<MODE>(v[k] - tau, inv_am1);
+    }
     return s - 1.0f;
   };
 
-  float tau_lo = mx - 1.0f;     // f(tau_lo) >= 0
-  float tau_hi = mx - c_hi;     // f(tau_hi) <= 0
   float tau;
   if (MODE == BISECT1 || MODE == BISECT2 || MODE == BISECT3) {
     const float f_lo0 = f_val(tau_lo);
     float dm = tau_hi - tau_lo;
     float t_lo = tau_lo;
     tau = tau_lo;
+#pragma unroll 1
     for (int it = 0; it < n_iter; ++it) {
       dm = dm * 0.5f;
       tau = t_lo + dm;
       if (f_val(tau) * f_lo0 >= 0.0f) t_lo = tau;
     }
   } else {
-    int n_polish;
     if (MODE == FASTPOW) {
       // the fast bracket only seeds tau; Newton keeps the exact bracket
       float a = tau_lo, b = tau_hi;
+#pragma unroll 1
       for (int it = 0; it < kFastBisect; ++it) {
         const float m = 0.5f * (a + b);
         float s = 0.0f;
 #pragma unroll
         for (int k = 0; k < MAXD; ++k)
-          if (k < d) s += fast_pow(v[k] - m, inv_am1);
+          if (PAD || k < d) s += fast_pow(v[k] - m, inv_am1);
         const bool pos = s - 1.0f >= 0.0f;
         a = pos ? m : a;
         b = pos ? b : m;
       }
       tau = 0.5f * (a + b);
-      n_polish = kPolish;
     } else {
+#pragma unroll 1
       for (int it = 0; it < kBisect; ++it) {
         const float m = 0.5f * (tau_lo + tau_hi);
         const bool pos = f_val(m) >= 0.0f;
@@ -127,13 +161,14 @@ __device__ __forceinline__ void entmax_column(float (&v)[MAXD], int d,
         tau_hi = pos ? tau_hi : m;
       }
       tau = 0.5f * (tau_lo + tau_hi);
-      n_polish = kNewton;
     }
+    const int n_polish = MODE == FASTPOW ? kPolish : kNewton;
+#pragma unroll 1
     for (int it = 0; it < n_polish; ++it) {
       float s = 0.0f, s2 = 0.0f;
 #pragma unroll
       for (int k = 0; k < MAXD; ++k) {
-        if (k < d) {
+        if (PAD || k < d) {
           const float z = clamp0(v[k] - tau);
           const float p = pow_inv<MODE>(z, inv_am1);
           s += p;
@@ -153,14 +188,14 @@ __device__ __forceinline__ void entmax_column(float (&v)[MAXD], int d,
   float sum = 0.0f;
 #pragma unroll
   for (int k = 0; k < MAXD; ++k) {
-    if (k < d) {
+    if (PAD || k < d) {
       v[k] = pow_inv<MODE>(v[k] - tau, inv_am1);
       sum += v[k];
     }
   }
 #pragma unroll
   for (int k = 0; k < MAXD; ++k)
-    if (k < d) v[k] = v[k] / sum;
+    if (PAD || k < d) v[k] = v[k] / sum;
 }
 
 // g = y^(2-alpha) on the support (y > 0) of the entmax VJP

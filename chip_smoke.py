@@ -5,14 +5,21 @@
 
 Phases, one line each, stopping at the first failure with a non-zero exit:
   1. device   nvidia-smi name and power limit, torch's device name
-  2. build    nvcc of every armnet_tpu_torch/kernels/csrc/*.cu, in parallel
+  2. build    nvcc of every armnet_tpu_torch/kernels/csrc/*.cu, in parallel;
+              ptxas registers and spills of every kernel, and of the
+              instantiations the main paths launch apart
   3. kernel   each CUDA kernel against its plain PyTorch version on the
               card: the entmax forward and backward at both Criteo and
               Frappe shapes, a 2-D last-axis and a ragged shape and a NaN
-              column, at four alphas; the table gradient on a Criteo
-              batch's ids, all ids equal, wrapped and dropped ids and a
-              ragged table, twice (bitwise equal). Kernel, plain and
-              library times (CUDA events, median) beside the bound
+              column, at four alphas (the forward timed at both shapes);
+              the table gradient on a Criteo batch's int32 and int64 ids,
+              Zipf-skewed ids, all ids equal, wrapped and dropped ids and
+              a ragged table, twice (bitwise equal), its radix sort
+              against a stable torch.sort, and its time split into the
+              sort and the fill and segmented sums. Kernel, plain and
+              library times (device ms of one call, and host-inclusive
+              ms beside them: armnet_tpu_torch/kernels/bench.py) beside
+              the bound
      kernel_arm  the fused ARM-1h forward (K5) and recompute backward (K6)
               against their plain versions at the Criteo and Frappe steps,
               a ragged batch and one row, at four alphas, K6 twice
@@ -54,7 +61,6 @@ import io
 import json
 import math
 import os
-import statistics
 import subprocess
 import tempfile
 import time
@@ -67,6 +73,9 @@ from armnet_tpu_torch.data.libsvm import (BatchIterator, LibsvmDataset,
                                           make_dataloaders)
 from armnet_tpu_torch.kernels import (arm_cuda, build, entmax_cuda,
                                       scatter_cuda)
+from armnet_tpu_torch.kernels.bench import (criteo_ids, host_incl_ms,
+                                            ptxas_report, table_grad_cases,
+                                            table_grad_split, time_ms)
 from armnet_tpu_torch.kernels.entmax_common import (N_BISECT, N_FAST,
                                                     N_NEWTON, N_POLISH,
                                                     solver_mode)
@@ -97,33 +106,33 @@ CRITEO_NFEAT = 2_100_000
 ALPHAS = (1.5, 1.7, 2.0, 2.5)
 SEED = 2025
 TRAIN_BATCHES, EVAL_ROWS = 10, 6000      # synthetic Criteo train split
+CPU_ROWS = 1024     # rows of a scoring batch that the CPU scores to compare
+PLAIN_REPS = 5      # timings of a plain version (10-40 ms a call on the card)
 # the JAX package's 3-epoch Frappe curve of this recipe (valid AUC)
 FRAPPE_JAX_VALID = (0.8211, 0.8841, 0.9041)
+
+
+# wall seconds by phase and by part of a phase, added up over the run
+SECONDS = {}
 
 
 def log(phase, **kw):
     print(f"{phase}: " + json.dumps(kw), flush=True)
 
 
+@contextlib.contextmanager
+def timed(name):
+    """Adds the wall seconds of the block to SECONDS[name]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SECONDS[name] = SECONDS.get(name, 0.0) + time.perf_counter() - t0
+
+
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
-
-
-def time_ms(fn, reps=20, warmup=3):
-    """Median ms of one call of fn, from CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def entmax_ops_per_element(alpha, n_iter=30):
@@ -213,20 +222,37 @@ def phase_device():
     return smi
 
 
+def main_path_instantiations():
+    """The kernel instantiations that the smoke's main paths launch (alpha
+    2, int32 ids), as ptxas_report names them."""
+    fwd, bwd = entmax_cuda.mode_id(2.0), entmax_cuda.g_mode_id(2.0)
+    names = {f"entmax_fwd_kernel<{entmax_cuda.bucket_for(d)},{fwd}>"
+             for d in (39, 10)}
+    names |= {f"entmax_bwd_kernel<{b},{bwd}>" for b in (64, 16)}
+    names |= {f"arm1h_fwd_kernel<40,{fwd}>", f"arm1h_bwd_kernel<40,{fwd},"
+              f"{bwd}>", "sum_rows_kernel"}
+    names |= {f"radix_{k}_kernel<int>" for k in ("count", "scatter")}
+    return names | {"radix_scan_kernel", "zero_kernel", "segment_kernel",
+                    "long_segment_kernel"}
+
+
 def phase_build():
     t0 = time.perf_counter()
     secs = build.build_all()
-    regs = {n: [ln.strip() for ln in build.build_log(n).splitlines()
-                if "registers" in ln or "spill" in ln][:4]
-            for n in secs}
+    report = {n: ptxas_report(build.build_log(n)) for n in secs}
+    main = main_path_instantiations()
+    main_path = {k: v for r in report.values() for k, v in r.items()
+                 if k in main}
+    check(set(main_path) == main, f"ptxas reports no "
+                                  f"{sorted(main - set(main_path))}")
     log("build", seconds=round(time.perf_counter() - t0, 3), per_source=secs,
-        ptxas=regs)
+        ptxas_main_path=main_path, ptxas=report)
 
 
 def phase_kernel():
     g = torch.Generator(device="cuda").manual_seed(SEED)
     # the serving shapes of the Criteo and Frappe phases (register buckets
-    # 64 and 16), a 2-D last-axis case and a ragged one (bucket 8)
+    # 40 and 16), a 2-D last-axis case and a ragged one (bucket 8)
     cases = [(CRITEO_SHAPE, 1), (FRAPPE_SHAPE, 1), ((8192, 39), -1),
              ((7, 5, 13), 1)]
     stats = {}
@@ -257,14 +283,26 @@ def phase_kernel():
               f"entmax kernel vs plain on a NaN column at alpha={alpha}")
         x = torch.randn(CRITEO_SHAPE, generator=g, device="cuda") * 3.0
         ms = time_ms(lambda: entmax_cuda.entmax_kernel(x, alpha, 1))
-        plain_ms = time_ms(lambda: entmax_cuda.entmax_plain(x, alpha, 1))
+        incl_ms = host_incl_ms(lambda: entmax_cuda.entmax_kernel(x, alpha, 1))
+        plain_ms = time_ms(lambda: entmax_cuda.entmax_plain(x, alpha, 1),
+                           PLAIN_REPS, 1)
+        xf = torch.randn(FRAPPE_SHAPE, generator=g, device="cuda") * 3.0
+        frappe_ms = time_ms(lambda: entmax_cuda.entmax_kernel(xf, alpha, 1))
         bound, by = entmax_bound_ms(CRITEO_SHAPE, alpha)
-        stats[alpha] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": by, "max_abs_err": max(errs)}
+        stats[alpha] = {"ms": ms, "host_incl_ms": incl_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "max_abs_err": max(errs),
+                        "frappe_ms": frappe_ms}
         log("kernel", name="entmax_fwd", alpha=alpha,
-            shape=list(CRITEO_SHAPE), axis=1, ms=ms, plain_ms=plain_ms,
-            bound_us=bound * 1e3, bound_by=by, max_abs_err=max(errs),
-            tol=tol, library="none: no single PyTorch call computes entmax")
+            shape=list(CRITEO_SHAPE), axis=1,
+            bucket=entmax_cuda.bucket_for(CRITEO_SHAPE[1]), ms=ms,
+            host_incl_ms=incl_ms, plain_ms=plain_ms, bound_us=bound * 1e3, bound_by=by,
+            frappe_shape=list(FRAPPE_SHAPE),
+            frappe_bucket=entmax_cuda.bucket_for(FRAPPE_SHAPE[1]),
+            frappe_ms=frappe_ms,
+            frappe_bound_us=entmax_bound_ms(FRAPPE_SHAPE, alpha)[0] * 1e3,
+            max_abs_err=max(errs), tol=tol,
+            library="none: no single PyTorch call computes entmax")
     return stats
 
 
@@ -307,15 +345,20 @@ def phase_kernel_bwd():
             alpha, 1)
         dy = torch.randn(CRITEO_SHAPE, generator=g, device="cuda")
         ms = time_ms(lambda: entmax_cuda.entmax_bwd_kernel(y, dy, alpha, 1))
+        incl_ms = host_incl_ms(
+            lambda: entmax_cuda.entmax_bwd_kernel(y, dy, alpha, 1))
         plain_ms = time_ms(lambda: entmax_cuda.entmax_bwd_plain(y, dy, alpha,
-                                                                1))
+                                                                1),
+                           PLAIN_REPS, 1)
         numel = math.prod(CRITEO_SHAPE)
         bound_ms, by = bound(3 * 4 * numel,
                              entmax_bwd_ops_per_element(alpha) * numel)
-        stats[alpha] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        stats[alpha] = {"ms": ms, "host_incl_ms": incl_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": by, "max_abs_err": max(errs)}
         log("kernel", name="entmax_bwd", alpha=alpha,
-            shape=list(CRITEO_SHAPE), axis=1, ms=ms, plain_ms=plain_ms,
+            shape=list(CRITEO_SHAPE), axis=1, ms=ms, host_incl_ms=incl_ms,
+            plain_ms=plain_ms,
             bound_us=bound_ms * 1e3, bound_by=by, max_abs_err=max(errs),
             tol=tol, library="none: no single PyTorch call computes the "
                              "entmax VJP")
@@ -329,14 +372,7 @@ def criteo_rows(rows, nfeat, nfield, seed):
     Returns (ids [rows, nfield] int64, values, labels)."""
     rng = np.random.RandomState(seed)
     n_num = 13
-    sizes = [100] * n_num
-    rest = nfeat - sum(sizes)
-    ncat = nfield - n_num
-    sizes += [rest // ncat + (1 if i < rest % ncat else 0)
-              for i in range(ncat)]
-    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
-    ids = offsets[None, :] + (rng.rand(rows, nfield)
-                              * np.asarray(sizes)[None, :]).astype(np.int64)
+    ids = criteo_ids(rows, nfeat, nfield, rng)
     values = np.ones((rows, nfield))
     values[:, :n_num] = np.round(rng.uniform(1e-3, 1.0, (rows, n_num)), 6)
     labels = (rng.rand(rows) < 0.25).astype(int)
@@ -346,84 +382,102 @@ def criteo_rows(rows, nfeat, nfield, seed):
 def write_criteo_libsvm(path, rows, nfeat, nfield, seed):
     """criteo_rows written as a libsvm file."""
     ids, values, labels = criteo_rows(rows, nfeat, nfield, seed)
+    line = "%d " + " ".join(["%d:%g"] * nfield) + "\n"
+    pairs = np.empty((rows, 2 * nfield), dtype=object)
+    pairs[:, 0::2], pairs[:, 1::2] = ids, values
     with open(path, "w") as f:
-        for r in range(rows):
-            f.write(str(labels[r]) + " " + " ".join(
-                f"{i}:{v:g}" for i, v in zip(ids[r], values[r])) + "\n")
+        f.writelines(line % (labels[r], *pairs[r]) for r in range(rows))
 
 
 def phase_kernel_table_grad():
-    """The table-gradient kernel against its plain version (index_add_) and
-    against itself (bitwise), on the train step's shapes: g [4096*39, 10]
-    and nrows 2.1M, which is not a multiple of the kernel's 128-row block.
-    The plain version runs on a CPU copy of the inputs, where index_add_
-    adds in the kernel's order (rtol 1e-5, atol 1e-6), and on the card,
-    where its atomics add in no fixed order: there each element is held
-    to 1e-6 + 1e-5 * sum|g| over its updates, a bound on any reordering of
-    the sum."""
+    """The table-gradient kernels against their plain version (index_add_)
+    and against themselves (bitwise), on the train step's shapes: g
+    [4096*39, 10] and nrows 2.1M. The plain version runs on a CPU copy of
+    the inputs, where index_add_ adds in the kernel's order: where no row
+    has more than scatter_cuda.CHUNK updates (which the kernel sums whole,
+    in that order) the result is held at rtol 1e-5, atol 1e-6; where one
+    has more (the Zipf cases, all ids equal; the kernel adds its pieces'
+    sums in order) at 1e-6 + 1e-5 * sum|g| over the row's updates, a bound
+    on any reordering of the sum. On the card index_add_'s atomics add in
+    no fixed order, so there every case is held to that bound. The radix
+    sort is held to a stable torch.sort (the same keys and permutation).
+    Timed on bench.table_grad_cases (a Criteo batch with ids uniform
+    within each field, the same Zipf-skewed, all ids equal): the whole
+    call, its kernels' device time split into the sort (the key prep
+    folded into its first pass) and the zero fill with the segmented sums,
+    the PyTorch route it replaced (elementwise prep, stable torch.sort)
+    and zeros + index_add_, one PyTorch call for the same sums."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    n, e, nrows = 4096 * 39, 10, CRITEO_NFEAT
-    batch_ids = torch.from_numpy(criteo_rows(4096, nrows, 39, SEED)[0]).to(
-        "cuda", torch.int32).reshape(-1)
-    cases = {
-        "criteo_batch": (batch_ids, nrows),
-        "all_ids_equal": (torch.full((n,), 1234567, dtype=torch.int32,
-                                     device="cuda"), nrows),
-        "wrapped_and_dropped": (torch.randint(
-            -2 * nrows, 2 * nrows, (n,), generator=g, device="cuda",
-            dtype=torch.int32), nrows),
-        "ragged_small": (torch.randint(0, 3001, (37,), generator=g,
-                                       device="cuda", dtype=torch.int32),
-                         3001),
-    }
+    e, nrows = 10, CRITEO_NFEAT
+    timed_cases = table_grad_cases()
+    n = timed_cases["criteo_batch"].numel()
+    cases = {name: (ids, nrows) for name, ids in timed_cases.items()}
+    cases["criteo_batch_int64"] = (timed_cases["criteo_batch"].long(),
+                                   nrows)
+    cases["wrapped_and_dropped"] = (torch.randint(
+        -2 * nrows, 2 * nrows, (n,), generator=g, device="cuda",
+        dtype=torch.int32), nrows)
+    cases["ragged_small"] = (torch.randint(
+        0, 3001, (37,), generator=g, device="cuda", dtype=torch.int32), 3001)
     errs, card_errs, out = [], [], {}
     for name, (ids, rows) in cases.items():
         gr = torch.randn((ids.shape[0], e), generator=g, device="cuda")
         got = scatter_cuda.table_grad(gr, ids, rows)
         again = scatter_cuda.table_grad(gr, ids, rows)
+        sid, perm = scatter_cuda.sort_ids(ids, rows)
+        want_sid, want_perm = scatter_cuda.sort_ids_plain(ids, rows)
         want = scatter_cuda.table_grad_plain(gr.cpu(), ids.cpu(), rows)
         card = scatter_cuda.table_grad_plain(gr, ids, rows)
         spread = scatter_cuda.table_grad_plain(gr.abs(), ids, rows)
         torch.cuda.synchronize()
+        keys = scatter_cuda.keys_plain(ids, rows)
+        longest = int(torch.bincount(keys[keys < rows]).max())
         got_cpu = got.cpu()
         err = float((got_cpu - want).abs().max())
         card_err = float((got - card).abs().max())
-        check(torch.allclose(got_cpu, want, rtol=1e-5, atol=1e-6),
-              f"table_grad kernel vs plain on {name}: max abs err {err}")
+        if longest <= scatter_cuda.CHUNK:
+            check(torch.allclose(got_cpu, want, rtol=1e-5, atol=1e-6),
+                  f"table_grad kernel vs plain on {name}: max abs err {err}")
+        else:
+            check(bool(((got_cpu - want).abs()
+                        <= 1e-6 + 1e-5 * spread.cpu()).all()),
+                  f"table_grad kernel vs plain on {name} (a row of "
+                  f"{longest} updates): max abs err {err}")
         check(bool(((got - card).abs() <= 1e-6 + 1e-5 * spread).all()),
               f"table_grad kernel vs index_add_ on the card on {name}: "
               f"max abs err {card_err}")
         check(torch.equal(got, again),
               f"table_grad kernel not bitwise deterministic on {name}")
+        check(torch.equal(sid, want_sid) and torch.equal(perm, want_perm),
+              f"radix sort vs stable torch.sort on {name}")
         errs.append(err)
         card_errs.append(card_err)
-        sid, order = scatter_cuda.sort_ids(ids, rows)
-        ms = time_ms(lambda: scatter_cuda.table_grad_sorted(gr, sid, order,
-                                                            rows))
-        whole_ms = time_ms(lambda: scatter_cuda.table_grad(gr, ids, rows))
-        plain_ms = time_ms(lambda: scatter_cuda.table_grad_plain(gr, ids,
-                                                                 rows))
-        library_ms = None
-        if name == "criteo_batch":
-            lib_ids = ids.long()
-            library_ms = time_ms(lambda: torch.zeros(
-                (rows, e), device="cuda").index_add_(0, lib_ids, gr))
-        # each input read once (g f32, ids int32), the dense output written
-        # once; one add per update element
-        bound_ms, by = bound(4 * rows * e + 4 * gr.numel() + 4 * ids.numel(),
-                             gr.numel())
-        out[name] = {"ms": ms, "table_grad_ms": whole_ms,
-                     "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": bound_ms, "bound_by": by}
-        log("kernel", name="table_grad", case=name, n=int(ids.shape[0]),
-            e=e, nrows=rows, ms=ms, table_grad_ms_with_sort=whole_ms,
-            plain_ms=plain_ms, library_ms=library_ms,
-            library="torch.zeros(nrows, E).index_add_(0, ids, g)",
-            bound_us=bound_ms * 1e3, bound_by=by, max_abs_err_cpu_plain=err,
-            max_abs_err_card_plain=card_err,
-            tol="rtol 1e-5, atol 1e-6 vs the CPU plain version; 1e-6 + "
-                "1e-5 * sum|g| vs index_add_ on the card; bitwise equal to "
-                "itself")
+        record = dict(case=name, n=int(ids.shape[0]), ids=str(ids.dtype),
+                      e=e, nrows=rows, longest_row=longest,
+                      max_abs_err_cpu_plain=err,
+                      max_abs_err_card_plain=card_err)
+        if name in timed_cases:
+            with timed("table_grad.timing"):
+                times = table_grad_split(gr, ids, rows)
+            plain_ms = time_ms(lambda: scatter_cuda.table_grad_plain(
+                gr, ids, rows))
+            # each input read once (g f32, ids), the dense output written
+            # once; one add per update element
+            bound_ms, by = bound(4 * rows * e + 4 * gr.numel()
+                                 + ids.element_size() * ids.numel(),
+                                 gr.numel())
+            out[name] = {**times, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": by}
+            record.update(times, plain_ms=plain_ms,
+                          prep="folded into the radix sort's first pass",
+                          library="torch.zeros(nrows, E).index_add_(0, ids, "
+                                  "g)",
+                          bound_us=bound_ms * 1e3, bound_by=by)
+        log("kernel", name="table_grad", **record,
+            tol="rtol 1e-5, atol 1e-6 vs the CPU plain version (1e-6 + "
+                "1e-5 * sum|g| where a row has more than CHUNK updates); "
+                "1e-6 + 1e-5 * sum|g| vs index_add_ on the card; bitwise "
+                "equal to itself")
     out["max_abs_err"] = max(errs)
     out["max_abs_err_vs_index_add_on_card"] = max(card_errs)
     return out
@@ -496,15 +550,18 @@ def phase_kernel_arm():
         bounds = fused_arm_bounds(CRITEO_ARM, alpha)
         for kind, errs in (("fwd", ferrs), ("bwd", berrs)):
             kernel, plain, comp = times[kind]
-            ms, plain_ms, composed_ms = (time_ms(kernel), time_ms(plain),
+            ms, plain_ms, composed_ms = (time_ms(kernel),
+                                         time_ms(plain, PLAIN_REPS, 1),
                                          time_ms(comp))
+            incl_ms = host_incl_ms(kernel)
             bound_ms, by, nbytes, nops = bounds[kind]
             stats[(kind, alpha)] = {
-                "ms": ms, "plain_ms": plain_ms, "composed_ms": composed_ms,
-                "bound_ms": bound_ms, "bound_by": by, "max_abs_err": max(errs)}
+                "ms": ms, "host_incl_ms": incl_ms, "plain_ms": plain_ms,
+                "composed_ms": composed_ms, "bound_ms": bound_ms,
+                "bound_by": by, "max_abs_err": max(errs)}
             log("kernel_arm", name=f"arm1h_{kind}", alpha=alpha,
                 shape=dict(zip("BFEDO", CRITEO_ARM)), ms=ms,
-                plain_ms=plain_ms, composed_ms=composed_ms,
+                host_incl_ms=incl_ms, plain_ms=plain_ms, composed_ms=composed_ms,
                 bound_us=bound_ms * 1e3, bound_by=by, bytes=nbytes,
                 f32_instruction_slots=nops, max_abs_err=max(errs),
                 tol="rtol/atol 2e-5" if kind == "fwd" else
@@ -522,7 +579,7 @@ def run_predict(ckpt, inp, out, expect_rows, kernel="entmax_fwd"):
     once per batch (entmax_fwd under auto, arm1h_fwd under pallas-fused,
     which predict restores from the checkpoint's sidecar), no other."""
     zero_counts()
-    with contextlib.redirect_stdout(io.StringIO()):    # predict's summary
+    with contextlib.redirect_stdout(io.StringIO()), timed("predict"):
         summary = predict.main(["--ckpt", ckpt, "--input", inp, "--output",
                                 out, "--device", "cuda"])
     counts = read_counts()
@@ -560,23 +617,26 @@ def criteo_config(ensemble, kernels="auto"):
         device="cuda", kernels=kernels)
 
 
-def first_batch_logits(ckpt, cfg, inp, device):
-    """The checkpoint's logits of the file's first batch on `device`, on
-    the CPU."""
+def first_batch_logits(ckpt, cfg, inp, device, rows=None):
+    """The checkpoint's logits of the file's first batch (its first `rows`
+    rows if given) on `device`, on the CPU."""
     first = next(iter(BatchIterator(LibsvmDataset(inp, cfg.nfield),
                                     cfg.batch_size)))
-    with torch.inference_mode():
+    with torch.inference_mode(), timed(f"logits_{device}"):
         return predict.load_model(ckpt, "best", cfg, device)(
-            {k: v.to(device) for k, v in first.items()}).cpu()
+            {k: v[:rows].to(device) for k, v in first.items()}).cpu()
 
 
 def first_batch_logit_err(ckpt, cfg, inp):
-    """Scores the file's first batch from the checkpoint on the card and on
-    the CPU (the plain versions); fails unless the logits agree within
-    rtol 1e-4, atol 1e-5. Returns the max abs difference."""
+    """Scores the file's first batch from the checkpoint on the card, and
+    its first CPU_ROWS rows on the CPU (the plain versions); fails unless
+    those rows' logits agree within rtol 1e-4, atol 1e-5. Scoring is row by
+    row (BatchNorm takes its running statistics), so a row's logit does not
+    depend on the rest of its batch. Returns the max abs difference."""
     lg = first_batch_logits(ckpt, cfg, inp, "cuda")
-    lc = first_batch_logits(ckpt, cfg, inp, "cpu")
     check(bool(torch.isfinite(lg).all()), "non-finite GPU logits")
+    lg = lg[:CPU_ROWS]
+    lc = first_batch_logits(ckpt, cfg, inp, "cpu", CPU_ROWS)
     err = float((lg - lc).abs().max())
     check(torch.allclose(lg, lc, rtol=1e-4, atol=1e-5),
           f"GPU vs CPU logits of the first batch differ by {err}")
@@ -586,7 +646,8 @@ def first_batch_logit_err(ckpt, cfg, inp):
 def phase_serve_criteo(tmp):
     rows = 10_000
     inp = os.path.join(tmp, "criteo_synth.libsvm")
-    write_criteo_libsvm(inp, rows, CRITEO_NFEAT, 39, SEED)
+    with timed("write_libsvm"):
+        write_criteo_libsvm(inp, rows, CRITEO_NFEAT, 39, SEED)
     launches_total = 0
     for ensemble in (False, True):
         cfg = criteo_config(ensemble)
@@ -728,24 +789,35 @@ def train_losses(log_path):
 
 
 @torch.no_grad()
-def arm_probe(model, batch):
-    """(entmax support y > 0 [B, F, O] on the CPU, u * kappa) for a batch,
-    by the same ops as ops/interaction.arm1h_interaction. kappa is the
-    largest |mean| / std over the channels of arm_bn's input, the
-    exponential neurons exp(z): one f32 rounding (u = 2^-24) of that input
-    is u * kappa of the spread arm_bn divides by, and every gradient above
-    and below arm_bn inherits that relative error."""
+def entmax_support(model, batch, rows=None):
+    """The entmax support y > 0 [B, F, O] of the batch's ARM gates (of its
+    first `rows` rows if given: a row's gates depend on that row alone), on
+    the CPU, by the same ops as ops/interaction.arm1h_interaction."""
     from armnet_tpu_torch.models.common import VALUE_CLAMP
     from armnet_tpu_torch.ops.entmax import entmax_bisect
 
     a = model.attn_layer
-    emb = model.embedding(batch["id"], batch["value"].clamp(*VALUE_CLAMP))
+    emb = model.embedding(batch["id"][:rows],
+                          batch["value"][:rows].clamp(*VALUE_CLAMP))
     keys = torch.matmul(emb, a.bilinear_w)
     gates = torch.matmul(keys, a.query.t()) * (a.query.shape[-1] ** -0.5)
-    support = (entmax_bisect(gates, a.alpha, axis=1) > 0).cpu()
+    return (entmax_bisect(gates, a.alpha, axis=1) > 0).cpu()
+
+
+@torch.no_grad()
+def u_kappa(model, batch):
+    """u * kappa for a batch. kappa is the largest |mean| / std over the
+    channels of arm_bn's input, the exponential neurons exp(z): one f32
+    rounding (u = 2^-24) of that input is u * kappa of the spread arm_bn
+    divides by, and every gradient above and below arm_bn inherits that
+    relative error."""
+    from armnet_tpu_torch.models.common import VALUE_CLAMP
+
+    a = model.attn_layer
+    emb = model.embedding(batch["id"], batch["value"].clamp(*VALUE_CLAMP))
     x = a(emb).transpose(0, 1).reshape(a.values.shape[0], -1)
     kappa = float((x.mean(1).abs() / x.std(1)).max())
-    return support, kappa * 2.0 ** -24
+    return kappa * 2.0 ** -24
 
 
 @contextlib.contextmanager
@@ -768,19 +840,24 @@ def plain_versions_on_card():
          arm_cuda.arm1h_bwd_kernel) = saved
 
 
-def one_step_grads(state, cfg, batch, device):
-    """(loss, logits, {name: clamped grad}, arm_probe), on the CPU, of one
-    train step from the model state `state` on `device`."""
-    model = create_model(cfg, seed=SEED, kernels=cfg.kernels)
-    model.load_state_dict(state)
-    model.to(device)
-    batch = {k: v.to(device) for k, v in batch.items()}
-    probe = arm_probe(model, batch)
-    loss, logits = forward_loss(model, batch)
-    loss.backward()
-    clamp_grads(model.parameters(), 1.0)
-    return (loss.item(), logits.detach().cpu(),
-            {n: p.grad.cpu() for n, p in model.named_parameters()}, probe)
+def one_step_grads(state, cfg, batch, device, probes=()):
+    """(loss, logits, {name: clamped grad}, [probe(model, batch) for each
+    of probes] taken before the step), on the CPU, of one train step from
+    the model state `state` on `device`."""
+    with timed(f"step_{device}.setup"):
+        model = create_model(cfg, seed=SEED, kernels=cfg.kernels)
+        model.load_state_dict(state)
+        model.to(device)
+        batch = {k: v.to(device) for k, v in batch.items()}
+    with timed(f"step_{device}.probe"):
+        seen = [probe(model, batch) for probe in probes]
+    with timed(f"step_{device}.step"):
+        loss, logits = forward_loss(model, batch)
+        loss.backward()
+        clamp_grads(model.parameters(), 1.0)
+        return (loss.item(), logits.detach().cpu(),
+                {n: p.grad.cpu() for n, p in model.named_parameters()},
+                seen)
 
 
 def within(delta, ref, rtol, atol=1e-6):
@@ -796,22 +873,27 @@ def gpu_vs_cpu_step(ckpt, ensemble, batch, kernels="auto", enforce=True):
     With enforce=False the same numbers are logged and nothing is held.
 
     The loss is held to 1e-5 relative. Each clamped gradient is held
-    norm-wise to atol 1e-6 plus rtol = max(1e-4, 16 u kappa) (arm_probe):
+    norm-wise to atol 1e-6 plus rtol = max(1e-4, 16 u kappa) (u_kappa):
     rtol 1e-4 where the forward allows it; where arm_bn magnifies one f32
     rounding of exp(z) to u kappa of its spread, two correct f32 steps
     differ by that much times the depth below, and the bound follows the
     conditioning this run measures. The card with the kernels is held both
     to the CPU and to the card with the plain versions. Also logged: the
-    elements outside the elementwise rtol 1e-4, atol 1e-6 and the entmax
-    columns whose support differs between card and CPU."""
-    state, _ = load_checkpoint(ckpt, "last")
+    elements outside the elementwise rtol 1e-4, atol 1e-6 and, among the
+    batch's first CPU_ROWS rows, the entmax columns whose support differs
+    between card and CPU."""
+    with timed("step.load"):
+        state, _ = load_checkpoint(ckpt, "last")
     cfg = criteo_config(ensemble, kernels)
-    lg, yg, gg, (sg, cond) = one_step_grads(state, cfg, batch, "cuda")
+    lg, yg, gg, (sg, cond) = one_step_grads(state, cfg, batch, "cuda",
+                                            (entmax_support, u_kappa))
     with plain_versions_on_card():
         _, yq, gq, _ = one_step_grads(state, cfg, batch, "cuda")
-    lc, yc, gc, (sc, _) = one_step_grads(state, cfg, batch, "cpu")
+    lc, yc, gc, (sc,) = one_step_grads(
+        state, cfg, batch, "cpu",
+        (lambda model, b: entmax_support(model, b, CPU_ROWS),))
     rtol = max(1e-4, 16 * cond)
-    flips = (sg != sc).any(1)                        # [B, O] columns
+    flips = (sg[:CPU_ROWS] != sc).any(1)             # [rows, O] columns
     def rel(a, b):
         return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
@@ -847,6 +929,7 @@ def gpu_vs_cpu_step(ckpt, ensemble, batch, kernels="auto", enforce=True):
                v["gpu_rel_gap"] for v in per_param.values()
                if v["norm"] > 1e-6 * v["numel"] ** 0.5),
            "support_flip_columns": int(flips.sum()),
+           "support_rows": CPU_ROWS,
            "strict_elementwise_outside": {
                n: v["elements"] for n, v in strict_outside.items()}}
     log("train_gpu_vs_cpu", ensemble=ensemble, kernels=kernels, ckpt=ckpt,
@@ -895,8 +978,10 @@ def phase_train(tmp):
     for i, (name, rows) in enumerate((("train", TRAIN_BATCHES * 4096),
                                       ("valid", EVAL_ROWS),
                                       ("test", EVAL_ROWS))):
-        write_criteo_libsvm(os.path.join(data, "criteo", f"{name}.libsvm"),
-                            rows, CRITEO_NFEAT, 39, SEED + 10 + i)
+        with timed("write_libsvm"):
+            write_criteo_libsvm(os.path.join(data, "criteo",
+                                             f"{name}.libsvm"),
+                                rows, CRITEO_NFEAT, 39, SEED + 10 + i)
     steps = 2 * TRAIN_BATCHES
     evals = 2 * 2 * -(-EVAL_ROWS // 4096)
     first = next(iter(BatchIterator(LibsvmDataset(
@@ -906,11 +991,12 @@ def phase_train(tmp):
                               (False, "pallas-fused")):
         fused = kernels == "pallas-fused"
         exp = f"criteo_ens{int(ensemble)}" + ("_fused" if fused else "")
-        _, counts, seconds = run_cli(criteo_flags(ensemble, kernels) + [
-            "--dataset", "criteo", "--data_dir", data, "--epoch", "2",
-            "--patience", "5", "--report_freq", "1", "--seed", str(SEED),
-            "--exp_name", exp, "--log_dir", os.path.join(tmp, "log"),
-            "--ckpt_dir", os.path.join(tmp, "ckpt"), "--device", "cuda"])
+        with timed("train.cli"):
+            _, counts, seconds = run_cli(criteo_flags(ensemble, kernels) + [
+                "--dataset", "criteo", "--data_dir", data, "--epoch", "2",
+                "--patience", "5", "--report_freq", "1", "--seed", str(SEED),
+                "--exp_name", exp, "--log_dir", os.path.join(tmp, "log"),
+                "--ckpt_dir", os.path.join(tmp, "ckpt"), "--device", "cuda"])
         want = {"entmax_fwd": steps + evals, "entmax_bwd": steps,
                 "table_grad": steps * (2 if ensemble else 1),
                 "arm1h_fwd": 0, "arm1h_bwd": 0}
@@ -935,20 +1021,25 @@ def phase_train(tmp):
         # the run's best checkpoint scores through predict on the card,
         # which restores the run's --kernels from the sidecar
         score_kernel = "arm1h_fwd" if fused else "entmax_fwd"
-        scored, score_launches = run_predict(
-            ckpt, os.path.join(data, "criteo", "valid.libsvm"),
-            os.path.join(tmp, f"{exp}.scores"), EVAL_ROWS, score_kernel)
-        if not fused:
-            gap = gpu_vs_cpu_step(ckpt, ensemble, first)
-        else:
-            # held from the state the auto run's step was held at, so the
-            # two kernel choices are compared at one conditioning; the
-            # fused run's own state is logged beside it
-            gap = gpu_vs_cpu_step(state_ckpt, ensemble, first, kernels)
-            gpu_vs_cpu_step(ckpt, ensemble, first, kernels, enforce=False)
+        with timed("train.predict"):
+            scored, score_launches = run_predict(
+                ckpt, os.path.join(data, "criteo", "valid.libsvm"),
+                os.path.join(tmp, f"{exp}.scores"), EVAL_ROWS, score_kernel)
+        with timed("train.gpu_vs_cpu"):
+            if not fused:
+                gap = gpu_vs_cpu_step(ckpt, ensemble, first)
+            else:
+                # held from the state the auto run's step was held at, so
+                # the two kernel choices are compared at one conditioning;
+                # the fused run's own state is logged beside it
+                gap = gpu_vs_cpu_step(state_ckpt, ensemble, first, kernels)
+                gpu_vs_cpu_step(ckpt, ensemble, first, kernels,
+                                enforce=False)
         if not ensemble and not fused:
             state_ckpt = ckpt
-        rates, ms_step, trainer = warm_train_rate(ensemble, data, kernels)
+        with timed("train.warm_rate"):
+            rates, ms_step, trainer = warm_train_rate(ensemble, data,
+                                                      kernels)
         log("train", width="cr_armnet1h", ensemble=ensemble, kernels=kernels,
             steps=steps, eval_batches=evals, launches=counts,
             per_step={k: counts[k] / steps for k in counts},
@@ -997,10 +1088,14 @@ def phase_profile_train(trainer, batch, kernels):
               and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
+    port = ("entmax_", "radix_", "zero_kernel", "segment_kernel", "arm1h_",
+            "sum_rows_kernel")
     log("profile_train", kernels=kernels, wall_ms=wall_ms, device_ms=busy_ms,
         device_busy_share=busy_ms / wall_ms,
         top=[[e.key[:80], e.count, e.self_device_time_total / 1e3]
-             for e in top])
+             for e in top],
+        port_kernels=[[e.key[:80], e.count, e.self_device_time_total / 1e3]
+                      for e in events if any(k in e.key for k in port)])
 
 
 def phase_frappe_train(tmp):
@@ -1030,47 +1125,68 @@ def main():
     # full-f32 GEMMs on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
-    fwd = phase_kernel()[2.0]                 # cr_armnet1h's alpha
-    bwd = phase_kernel_bwd()[2.0]
-    tg = phase_kernel_table_grad()
-    arm = phase_kernel_arm()
+    with timed("build"):
+        phase_build()
+    with timed("kernel"):
+        fwd = phase_kernel()[2.0]                 # cr_armnet1h's alpha
+    with timed("kernel_bwd"):
+        bwd = phase_kernel_bwd()[2.0]
+    with timed("kernel_table_grad"):
+        tg = phase_kernel_table_grad()
+    with timed("kernel_arm"):
+        arm = phase_kernel_arm()
     with tempfile.TemporaryDirectory() as tmp:
-        inp, serve = phase_serve_criteo(tmp)
-        serve_fused = phase_serve_fused(tmp, inp)
-        serve += phase_serve_frappe(tmp)
-        phase_profile(inp)
-        train = phase_train(tmp)
-        frappe = phase_frappe_train(tmp)
+        with timed("serve"):
+            inp, serve = phase_serve_criteo(tmp)
+        with timed("serve_fused"):
+            serve_fused = phase_serve_fused(tmp, inp)
+        with timed("frappe"):
+            serve += phase_serve_frappe(tmp)
+        with timed("profile"):
+            phase_profile(inp)
+        with timed("train"):
+            train = phase_train(tmp)
+        with timed("frappe_train"):
+            frappe = phase_frappe_train(tmp)
+    log("seconds", **SECONDS)
     launches = {k: train[k] + frappe[k] for k in train}
     launches["entmax_fwd"] += serve
     launches["arm1h_fwd"] += serve_fused
     arm_lines = [
         {"name": f"arm1h_{kind}", "route": "cuda",
-         "source": "armnet_tpu_torch/kernels/csrc/arm1h.cu",
+         "source": f"armnet_tpu_torch/kernels/csrc/{source}",
          "replaces": f"armnet_tpu/kernels/arm_pallas.py:{line}",
          "launches": launches[f"arm1h_{kind}"],
          **arm[(kind, 2.0)], "library_ms": None,
          "shape": dict(zip("BFEDO", CRITEO_ARM)), "alpha": 2.0}
-        for kind, line in (("fwd", 184), ("bwd", 211))]
+        for kind, line, source in (("fwd", 184, "arm1h.cu"),
+                                   ("bwd", 211, "arm1h_bwd.cu"))]
 
     crit = tg["criteo_batch"]
+    zipf = {k[len("zipf_"):]: {"table_grad_ms": v["whole_ms"],
+                               "library_ms": v["library_ms"]}
+            for k, v in tg.items() if k.startswith("zipf_")}
     print(json.dumps({"kernels": [
         {"name": "entmax_fwd", "route": "cuda",
-         "source": "armnet_tpu_torch/kernels/csrc/entmax.cu",
+         "source": "armnet_tpu_torch/kernels/csrc/entmax_fwd.cuh",
          "replaces": "armnet_tpu/kernels/entmax_pallas.py:151",
          "also_replaces": "armnet_tpu/kernels/entmax_pallas.py:40",
          "launches": launches["entmax_fwd"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
+         "host_incl_ms": fwd["host_incl_ms"],
          "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": None,
-         "shape": list(CRITEO_SHAPE), "alpha": 2.0},
+         "shape": list(CRITEO_SHAPE), "alpha": 2.0,
+         "bucket": entmax_cuda.bucket_for(CRITEO_SHAPE[1]),
+         "frappe_ms": fwd["frappe_ms"],
+         "frappe_bucket": entmax_cuda.bucket_for(FRAPPE_SHAPE[1])},
         {"name": "entmax_bwd", "route": "cuda",
          "source": "armnet_tpu_torch/kernels/csrc/entmax.cu",
          "replaces": "armnet_tpu/kernels/entmax_pallas.py:159",
          "also_replaces": "armnet_tpu/kernels/entmax_pallas.py:53",
          "launches": launches["entmax_bwd"],
          "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+         "host_incl_ms": bwd["host_incl_ms"],
          "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
          "bound_by": bwd["bound_by"], "library_ms": None,
          "shape": list(CRITEO_SHAPE), "alpha": 2.0},
@@ -1080,11 +1196,20 @@ def main():
          "launches": launches["table_grad"],
          "max_abs_err": tg["max_abs_err"],
          "max_abs_err_vs_index_add_on_card":
-             tg["max_abs_err_vs_index_add_on_card"], "ms": crit["ms"],
+             tg["max_abs_err_vs_index_add_on_card"], "ms": crit["kernel_ms"],
          "plain_ms": crit["plain_ms"], "bound_ms": crit["bound_ms"],
          "bound_by": crit["bound_by"], "library_ms": crit["library_ms"],
-         "table_grad_ms_with_sort": crit["table_grad_ms"],
-         "all_ids_equal_ms": tg["all_ids_equal"]["ms"],
+         "table_grad_ms_with_sort": crit["whole_ms"],
+         "host_incl_ms": crit["whole_host_incl_ms"],
+         "library_host_incl_ms": crit["library_host_incl_ms"],
+         "table_grad_sort_ms": crit["sort_ms"],
+         "table_grad_fill_ms": crit["fill_ms"],
+         "table_grad_prep_ms": None,
+         "table_grad_prep": "folded into the radix sort's first pass",
+         "torch_prep_ms": crit["torch_prep_ms"],
+         "torch_sort_ms": crit["torch_sort_ms"],
+         "all_ids_equal_ms": tg["all_ids_equal"]["whole_ms"],
+         "zipf": zipf,
          "shape": [4096 * 39, 10], "nrows": CRITEO_NFEAT},
         *arm_lines,
     ]}), flush=True)

@@ -70,6 +70,39 @@ def test_entmax_kernel_nan_column_matches_plain(cuda, alpha):
     torch.testing.assert_close(yk, yp, rtol=0, atol=tol, equal_nan=True)
 
 
+@pytest.mark.parametrize("d", [8, 9, 16, 17, 39, 40, 41, 64])
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_entmax_kernel_bucket_edges(cuda, alpha, d):
+    """Each register bucket's edges (d = 8k and 8k + 1), on an odd number of
+    columns so that the last block's threads hold some columns past the
+    end."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((3, d, 37), generator=g, device=cuda) * 3.0
+    yk = entmax_cuda.entmax_kernel(x, alpha, 1)
+    yp = entmax_cuda.entmax_plain(x, alpha, 1)
+    torch.cuda.synchronize()
+    tol = 1e-5 if alpha > 2 else 5e-6
+    torch.testing.assert_close(yk, yp, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_entmax_fwd_refuses_a_bucket_it_lacks(cuda, alpha):
+    """Each forward C entry takes only the buckets it instantiates
+    (multiples of 8 up to 64, d <= bucket) and only its own solver modes
+    (entmax.cu the bisection modes, entmax_fastpow.cu and entmax_newton.cu
+    one powf mode each)."""
+    fn = entmax_cuda.fwd_function(alpha)
+    x = torch.randn((2, 10, 5), device=cuda)
+    y = torch.empty_like(x)
+    for bucket in (12, 8, 72):
+        assert fn(*entmax_cuda.fwd_args(x, y, alpha, 2, 10, 5, bucket)) != 0
+    args = list(entmax_cuda.fwd_args(x, y, alpha, 2, 10, 5, 16))
+    assert fn(*args) == 0
+    args[6] = entmax_cuda.mode_id(2.5 if alpha < 2.5 else 2.0)
+    assert fn(*args) != 0
+    torch.cuda.synchronize()
+
+
 def test_entmax_kernel_counts_launches_and_rejects(cuda):
     x = torch.randn(4, 39, 16, device=cuda)
     before = entmax_cuda.LAUNCHES
@@ -170,6 +203,57 @@ def test_table_grad_kernel_matches_plain(cuda, n, e, nrows, lo, hi):
     assert torch.equal(got, again)              # deterministic bits
 
 
+@pytest.mark.parametrize("length", [scatter_cuda.CHUNK, scatter_cuda.CHUNK + 1,
+                                    3 * scatter_cuda.CHUNK + 5])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_table_grad_kernel_long_segment(cuda, length, dtype):
+    """One row with `length` updates among others, at the edge of the
+    kernel's uncut segment (CHUNK) and past it: up to CHUNK updates the row
+    is summed in the stable order (rtol 1e-5, atol 1e-6 against index_add_
+    on the CPU); past it in ordered pieces, held to 1e-6 + 1e-5 * sum|g|,
+    a bound on any reordering of the sum. Bitwise equal run to run."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    nrows = 5000
+    ids = torch.randint(100, nrows, (3 * length,), generator=g, device=cuda)
+    ids[torch.randperm(3 * length, generator=g, device=cuda)[:length]] = 77
+    ids = ids.to(dtype)
+    gr = torch.randn((3 * length, 10), generator=g, device=cuda)
+    got = scatter_cuda.table_grad(gr, ids, nrows)
+    again = scatter_cuda.table_grad(gr, ids, nrows)
+    want = scatter_cuda.table_grad_plain(gr.cpu(), ids.cpu(), nrows)
+    spread = scatter_cuda.table_grad_plain(gr.abs().cpu(), ids.cpu(), nrows)
+    rows = torch.ones(nrows, dtype=torch.bool)
+    rows[77] = length <= scatter_cuda.CHUNK
+    torch.testing.assert_close(got.cpu()[rows], want[rows], rtol=1e-5,
+                               atol=1e-6)
+    assert bool(((got.cpu() - want).abs() <= 1e-6 + 1e-5 * spread).all())
+    assert torch.equal(got, again)
+
+
+def test_table_grad_kernel_all_ids_dropped(cuda):
+    gr = torch.randn((1000, 10), device=cuda)
+    ids = torch.full((1000,), 3000, device=cuda)
+    ids[::2] = -3001
+    got = scatter_cuda.table_grad(gr, ids, 3000)
+    assert got.shape == (3000, 10) and int(torch.count_nonzero(got)) == 0
+
+
+@pytest.mark.parametrize("n,nrows", [(1, 1), (5000, 6000), (159744, 2100000),
+                                     (70000, 2 ** 31 - 2), (300, 50)])
+def test_sort_ids_matches_plain(cuda, n, nrows):
+    """The radix sort (one, two and three passes) gives torch.sort's stable
+    order: the same keys and the same permutation."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ids = torch.randint(-2 * nrows, 2 * nrows, (n,), generator=g,
+                        device=cuda)
+    ids[: n // 2] = ids[: n // 2] % 97          # duplicates
+    for t in (ids, ids.to(torch.int32) if 2 * nrows < 2 ** 31 else ids):
+        sid, perm = scatter_cuda.sort_ids(t, nrows)
+        want_sid, want_perm = scatter_cuda.sort_ids_plain(t, nrows)
+        assert perm.dtype == torch.int32
+        assert torch.equal(sid, want_sid) and torch.equal(perm, want_perm)
+
+
 def test_table_grad_kernel_all_ids_equal(cuda):
     gr = torch.ones((40000, 10), device=cuda)
     ids = torch.full((40000,), 1234, device=cuda)
@@ -183,11 +267,14 @@ def test_table_grad_counts_launches_and_rejects(cuda):
     before = scatter_cuda.LAUNCHES
     scatter_cuda.table_grad(gr, ids, 300)
     assert scatter_cuda.LAUNCHES == before + 1
-    sid, order = scatter_cuda.sort_ids(ids, 300)
     with pytest.raises(TypeError):
-        scatter_cuda.table_grad_sorted(gr.double(), sid, order, 300)
+        scatter_cuda.table_grad(gr, ids.float(), 300)
     with pytest.raises(ValueError, match="fit"):
-        scatter_cuda.table_grad_sorted(gr, sid[:5], order, 300)
+        scatter_cuda.table_grad(gr, ids[:5], 300)
+    with pytest.raises(ValueError, match="contiguous"):
+        scatter_cuda.table_grad(gr, torch.stack([ids, ids], 1)[:, 0], 300)
+    with pytest.raises(TypeError):
+        scatter_cuda.sort_ids(ids.float(), 300)
     assert scatter_cuda.LAUNCHES == before + 1
 
 

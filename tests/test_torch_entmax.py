@@ -15,7 +15,7 @@ from armnet_tpu.kernels.entmax_common import \
     solve_entmax_axis0 as jax_solve_entmax_axis0
 from armnet_tpu.kernels.entmax_pallas import entmax_pallas
 from armnet_tpu.ops.entmax import entmax_bisect as jax_entmax_bisect
-from armnet_tpu_torch.kernels import entmax_cuda
+from armnet_tpu_torch.kernels import bench, entmax_cuda
 from armnet_tpu_torch.kernels.entmax_common import (entmax_bwd_axis0,
                                                     solve_entmax_axis0,
                                                     solver_mode)
@@ -88,6 +88,39 @@ def test_solver_branches():
     assert solver_mode(2.0) == solver_mode(1.5) == "bisect"
     assert solver_mode(1.7) == "fastpow"
     assert solver_mode(2.5) == "newton"
+
+
+@pytest.mark.parametrize("d", range(1, 66))
+def test_forward_register_bucket(d):
+    """The forward kernel's bucket is the least multiple of 8 that holds d
+    (the Criteo d = 39 in 40, Frappe's 10 in 16); past 64 it raises."""
+    if d > entmax_cuda.MAX_D:
+        with pytest.raises(ValueError, match="64"):
+            entmax_cuda.bucket_for(d)
+        return
+    b = entmax_cuda.bucket_for(d)
+    assert b % 8 == 0 and b - 8 < d <= b <= entmax_cuda.MAX_D
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN6armnet17entmax_fwd_kernelILi40ELi1EEEvPKfPflilifff",
+     "entmax_fwd_kernel<40,1>"),
+    ("_ZN12_GLOBAL__N_117entmax_bwd_kernelILi64ELi0EEEvPKfS2_Pflilif",
+     "entmax_bwd_kernel<64,0>"),
+    ("_ZN12_GLOBAL__N_118radix_count_kernelIiEEvPKT_iiiPil",
+     "radix_count_kernel<int>"),
+    ("_ZN12_GLOBAL__N_114segment_kernelEPKfPKiS3_iiiPfS4_Pi",
+     "segment_kernel")])
+def test_ptxas_report_names_each_instantiation(mangled, name):
+    """kernels/bench.ptxas_report reads nvcc's -Xptxas -v log into
+    registers and spills by instantiation, the names the smoke's build
+    phase looks up for the main path."""
+    log = (f"ptxas info    : Compiling entry function '{mangled}' for "
+           f"'sm_90a'\nptxas info    : Function properties for {mangled}\n"
+           f"    0 bytes stack frame, 12 bytes spill stores, 8 bytes spill "
+           f"loads\nptxas info    : Used 72 registers, 384 bytes cmem[0]\n")
+    assert bench.ptxas_report(log) == {
+        name: {"registers": 72, "spill_stores": 12, "spill_loads": 8}}
 
 
 def test_cpu_tensor_takes_plain_version_without_launch():

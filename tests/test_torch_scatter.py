@@ -15,11 +15,12 @@ import pytest
 import torch
 
 from armnet_tpu.kernels.scatter_pallas import (BUCKET, CHUNK,
+                                               _sorted_prep,
                                                _table_grad_tpu_v4,
                                                _wrap_negative_ids,
                                                table_grad_reference)
 from armnet_tpu.ops.embedding import scaled_embedding_lookup
-from armnet_tpu_torch.kernels import scatter_cuda
+from armnet_tpu_torch.kernels import bench, scatter_cuda
 from armnet_tpu_torch.ops.embedding import embedding_bag, table_grad
 
 RTOL, ATOL = 1e-5, 2e-5
@@ -103,13 +104,52 @@ def test_out_of_range_ids_are_dropped():
 
 
 def test_sort_keys_drop_and_wrap():
-    keys, order = scatter_cuda.sort_ids(
+    keys, order = scatter_cuda.sort_ids_plain(
         torch.tensor([3, -1, 10, -11, 3, 0]), 10)
-    assert keys.dtype == torch.int32 and order.dtype == torch.int64
+    assert keys.dtype == torch.int32 and order.dtype == torch.int32
     assert keys.tolist() == [0, 3, 3, 9, 10, 10]
     assert order.tolist() == [5, 0, 4, 1, 2, 3]        # stable
     with pytest.raises(ValueError, match="nrows"):
-        scatter_cuda.sort_ids(torch.tensor([0]), 0)
+        scatter_cuda.sort_ids_plain(torch.tensor([0]), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        scatter_cuda.sort_ids(torch.tensor([0]), 10)
+
+
+def _ids_with_every_kind(nrows, seed):
+    """int32 ids in [-2 nrows, 2 nrows): wrapped, dropped and duplicated."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(-2 * nrows, 2 * nrows, 700).astype(np.int32)
+    ids[:200] = rng.randint(-nrows, nrows, 200)
+    ids[200:260] = 5                                   # duplicates
+    ids[260:270] = [nrows, -nrows - 1, -nrows, nrows - 1, -1, 0,
+                    2 ** 31 - 1, -2 ** 31, 3 * nrows, 5]
+    return ids
+
+
+@pytest.mark.parametrize("nrows", [7, 2048, 3001])
+def test_key_prep_matches_jax_prep(nrows):
+    """keys_plain against the JAX package's `_wrap_negative_ids`: the same
+    key for every id it keeps, and nrows for every id that JAX's kernel
+    leaves outside [0, nrows) (which it drops)."""
+    ids = _ids_with_every_kind(nrows, seed=nrows)
+    keys = scatter_cuda.keys_plain(torch.from_numpy(ids), nrows).numpy()
+    jw = np.asarray(_wrap_negative_ids(jnp.asarray(ids), nrows))
+    want = np.where((jw >= 0) & (jw < nrows), jw, nrows)
+    np.testing.assert_array_equal(keys, want)
+    assert keys.dtype == np.int32
+
+
+@pytest.mark.parametrize("nrows", [7, 2048, 3001])
+def test_sorted_prep_matches_jax_sorted_prep(nrows):
+    """sort_ids_plain against the JAX package's `_sorted_prep` (lax.sort of
+    (ids, iota), num_keys=1) on the same keys: the same sorted keys and the
+    same permutation, so equal keys keep their order in both."""
+    ids = _ids_with_every_kind(nrows, seed=nrows + 1)
+    keys = scatter_cuda.keys_plain(torch.from_numpy(ids), nrows)
+    sid, perm = scatter_cuda.sort_ids_plain(torch.from_numpy(ids), nrows)
+    order, jsid, _ = _sorted_prep(jnp.asarray(keys.numpy()), nrows, BUCKET)
+    np.testing.assert_array_equal(sid.numpy(), np.asarray(jsid))
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(order))
 
 
 def test_cpu_dispatch_takes_plain_version_without_launch():
@@ -162,3 +202,25 @@ def test_embedding_bag_skips_what_needs_no_grad():
     out.sum().backward()
     assert table.grad[2].tolist() == [2.0] * 4
     assert float(table.grad.sum()) == 16.0
+
+
+@pytest.mark.parametrize("zipf", [None, 0.99, 1.5])
+def test_bench_ids_keep_criteo_geometry(zipf):
+    """The timed table-gradient batches (kernels/bench.py): every id inside
+    its field's range; with a Zipf exponent s, the hottest id of a field is
+    drawn 1 / sum_k k^-s of the time, within 5 standard deviations."""
+    nfeat, rows = 20000, 2048
+    sizes = bench.field_sizes(nfeat, 39)
+    assert sizes.sum() == nfeat and len(sizes) == 39
+    ids = bench.criteo_ids(rows, nfeat, 39, np.random.RandomState(0),
+                           zipf=zipf)
+    lo = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    assert ids.shape == (rows, 39)
+    assert ((ids >= lo) & (ids < lo + sizes)).all()
+    if zipf is None:
+        return
+    for f in (0, 20):
+        top = np.bincount(ids[:, f]).max() / rows
+        p1 = 1.0 / np.sum(np.arange(1, sizes[f] + 1, dtype=np.float64)
+                          ** -zipf)
+        assert abs(top - p1) <= 5 * np.sqrt(p1 * (1 - p1) / rows)
