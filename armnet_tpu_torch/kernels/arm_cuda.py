@@ -1,7 +1,9 @@
 """Wrappers of the fused ARM-1h CUDA kernels: the forward (csrc/arm1h.cu),
 port of the Pallas `_fwd_call` -> `_fwd_kernel` (K5), and the recompute
-backward (csrc/arm1h_bwd.cu), port of `_bwd_call` -> `_bwd_kernel` (K6), of
-armnet_tpu/kernels/arm_pallas.py.
+backward (csrc/arm1h_bwd.cuh, built in arm1h_bwd.cu, arm1h_bwd_fastpow.cu
+and arm1h_bwd_newton.cu for E and dk <= 16, arm1h_bwd_wide.cu and
+arm1h_bwd_wide_powf.cu for wider rows), port of `_bwd_call` ->
+`_bwd_kernel` (K6), of armnet_tpu/kernels/arm_pallas.py.
 
   arm1h_fwd_kernel / arm1h_fwd_plain   emb [B, F, E], wk [E, dk], q [O, dk],
                                        vt [F, O] -> exp-cross out [B, O, E]
@@ -23,11 +25,14 @@ import torch
 from armnet_tpu_torch.kernels import build
 from armnet_tpu_torch.kernels.entmax_common import (bisect_steps,
                                                     entmax_bwd_axis0,
-                                                    solve_entmax_axis0)
+                                                    solve_entmax_axis0,
+                                                    solver_mode)
 from armnet_tpu_torch.kernels.entmax_cuda import g_mode_id, mode_id
 
 __all__ = ["arm1h_fwd_kernel", "arm1h_fwd_plain", "arm1h_bwd_kernel",
-           "arm1h_bwd_plain", "LAUNCHES", "BWD_LAUNCHES", "MAX_F"]
+           "arm1h_bwd_plain", "fwd_smem_bytes", "fwd_blocks_per_sm",
+           "bwd_blocks_per_sm", "bwd_grid", "LAUNCHES", "BWD_LAUNCHES",
+           "MAX_F"]
 
 # kernel launches since the count was last set to 0 (the one place that
 # adds to LAUNCHES is arm1h_fwd_kernel, to BWD_LAUNCHES arm1h_bwd_kernel,
@@ -35,8 +40,8 @@ __all__ = ["arm1h_fwd_kernel", "arm1h_fwd_plain", "arm1h_bwd_kernel",
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 MAX_F = 40                 # largest register bucket of the kernels
+NARROW_ED = 16             # E and dk of K6's narrow builds (csrc kMaxED)
 SMEM_BYTES = 232_448       # shared memory a block can use on Hopper
-BWD_BLOCKS_PER_SM = 2      # K6's persistent grid
 
 
 def _gates(emb, wk, q):
@@ -119,9 +124,19 @@ def _check(who, emb, wk, q, vt, alpha, dout=None):
     return b, f, e, dk, o
 
 
-def _smem_check(who, floats):
-    if 4 * floats > SMEM_BYTES:
-        raise ValueError(f"{who} needs {4 * floats} bytes of shared memory "
+def _pad4(n):
+    return -(-n // 4) * 4
+
+
+def fwd_smem_bytes(f, e, dk, o):
+    """Shared memory of a K5 block (csrc/arm1h.cu fwd_smem): emb and keys
+    with rows padded to 4 floats, and the row's outputs [O, E]."""
+    return 4 * (f * _pad4(e) + f * _pad4(dk) + o * e)
+
+
+def _smem_check(who, nbytes):
+    if nbytes > SMEM_BYTES:
+        raise ValueError(f"{who} needs {nbytes} bytes of shared memory "
                          f"at these shapes, more than {SMEM_BYTES}")
 
 
@@ -133,6 +148,65 @@ def _solver_args(alpha, f, n_iter):
             (1.0 / f) ** am1)
 
 
+def _blocks_per_sm(source, entry, args):
+    """Blocks of a kernel that one SM holds, from the C entry's occupancy
+    query (built at first use)."""
+    fn = build.function(source, entry, [ctypes.c_int] * len(args)
+                        + [ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    err = fn(*args, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {err}")
+    return n.value
+
+
+def _bwd_source(alpha, e, dk):
+    """K6's library, the sources built apart so that nvcc builds them in
+    parallel: arm1h_bwd (the bisection modes), arm1h_bwd_fastpow or
+    arm1h_bwd_newton for E and dk <= NARROW_ED; arm1h_bwd_wide (the
+    bisection modes) or arm1h_bwd_wide_powf for wider rows."""
+    mode = solver_mode(alpha)
+    if max(e, dk) > NARROW_ED:
+        return "arm1h_bwd_wide" + ("" if mode == "bisect" else "_powf")
+    return "arm1h_bwd" if mode == "bisect" else f"arm1h_bwd_{mode}"
+
+
+def fwd_blocks_per_sm(f, e, dk, o, alpha):
+    """Blocks of K5 that one SM holds at these shapes and alpha."""
+    return _blocks_per_sm("arm1h", "armnet_arm1h_fwd_blocks_per_sm",
+                          (f, e, dk, o, mode_id(float(alpha))))
+
+
+def bwd_blocks_per_sm(f, e, dk, o, alpha):
+    """Blocks of K6 that one SM of the current device holds at these shapes
+    and alpha; 0 where E and dk are too wide for a block's shared memory
+    (csrc/arm1h_bwd.cuh bwd_groups)."""
+    alpha = float(alpha)
+    return _blocks_per_sm(_bwd_source(alpha, e, dk),
+                          "armnet_arm1h_bwd_blocks_per_sm",
+                          (f, e, dk, o, mode_id(alpha), g_mode_id(alpha)))
+
+
+_BWD_GRID = {}      # (device index, F, E, dk, O, mode) -> blocks filling it
+
+
+def bwd_grid(b, f, e, dk, o, alpha, device):
+    """K6's persistent grid on `device`: the blocks its SMs hold at once
+    (bwd_blocks_per_sm), at most one per row. Raises where E and dk are
+    too wide for a block's shared memory."""
+    key = (device.index, f, e, dk, o, mode_id(float(alpha)))
+    if key not in _BWD_GRID:
+        with torch.cuda.device(device):
+            per_sm = bwd_blocks_per_sm(f, e, dk, o, alpha)
+        if per_sm < 1:
+            raise ValueError(
+                f"arm1h_bwd_kernel: E={e}, dk={dk} at F={f} need more "
+                f"shared memory than a block has")
+        _BWD_GRID[key] = per_sm * \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return min(b, _BWD_GRID[key])
+
+
 def arm1h_fwd_kernel(emb, wk, q, vt, alpha, n_iter=50):
     """The fused ARM-1h forward on the card, on the current stream:
     contiguous CUDA float32 emb [B, F, E], wk [E, dk], q [O, dk],
@@ -140,7 +214,7 @@ def arm1h_fwd_kernel(emb, wk, q, vt, alpha, n_iter=50):
     global LAUNCHES
     alpha = float(alpha)
     b, f, e, dk, o = _check("arm1h_fwd_kernel", emb, wk, q, vt, alpha)
-    _smem_check("arm1h_fwd_kernel", f * e + f * dk + o * e)
+    _smem_check("arm1h_fwd_kernel", fwd_smem_bytes(f, e, dk, o))
     out = torch.empty((b, o, e), dtype=torch.float32, device=emb.device)
     if b == 0:
         return out
@@ -164,28 +238,29 @@ def arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha, n_iter=50):
     """The fused ARM-1h recompute backward on the card, on the current
     stream: the forward's inputs and dout [B, O, E] -> (de [B, F, E],
     dwk [E, dk], dq [O, dk], dvt [F, O]). The batch sums are deterministic:
-    per-block partials summed in block order. Raises on what the kernel
-    does not take."""
+    a persistent grid (bwd_grid) whose blocks each sum their rows, the
+    blocks' sums then added in block order. Raises on what the kernel does
+    not take."""
     global BWD_LAUNCHES
     alpha = float(alpha)
     b, f, e, dk, o = _check("arm1h_bwd_kernel", emb, wk, q, vt, alpha, dout)
-    _smem_check("arm1h_bwd_kernel", f * e + 2 * f * dk + 2 * o * dk + o * e
-                + 2 * f * (o + 1) + f * o + e * dk)
     dev = emb.device
     de = torch.empty((b, f, e), dtype=torch.float32, device=dev)
     sizes = (e * dk, o * dk, f * o)
-    grads = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
+    # the kernels write every element; no rows leave the sums 0
+    grads = (torch.empty if b else torch.zeros)(sum(sizes),
+                                                dtype=torch.float32,
+                                                device=dev)
     dwk, dq, dvt = (g.view(shape) for g, shape in zip(
         grads.split(sizes), ((e, dk), (o, dk), (f, o))))
     if b == 0:
         return de, dwk, dq, dvt
-    blocks = min(b, BWD_BLOCKS_PER_SM
-                 * torch.cuda.get_device_properties(dev).multi_processor_count)
+    blocks = bwd_grid(b, f, e, dk, o, alpha, dev)
     partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32,
                           device=dev)
     mode, steps, am1, inv_am1, c_hi = _solver_args(alpha, f, n_iter)
     fn = build.function(
-        "arm1h_bwd", "armnet_arm1h_bwd",
+        _bwd_source(alpha, e, dk), "armnet_arm1h_bwd",
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
         + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(dev):

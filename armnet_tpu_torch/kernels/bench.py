@@ -2,9 +2,14 @@
 shapes and every alpha, the table gradient (K7) on a Criteo batch with
 uniform and Zipf-skewed ids and all ids equal, split into its sort and its
 fill and segmented sums beside the PyTorch route it replaced and
-`zeros + index_add_`, and the registers and spills that ptxas reports.
+`zeros + index_add_`, the fused ARM-1h forward and backward (K5/K6) at the
+Criteo and Frappe steps (and Frappe at nemb 100) and every alpha beside
+the composed path and the bound, K6 split into its kernels, and the
+registers and spills that ptxas reports.
 
-    python -m armnet_tpu_torch.kernels.bench [--out FILE]
+    python -m armnet_tpu_torch.kernels.bench [--out FILE] [SECTION ...]
+
+SECTION is entmax, table_grad or arm (all three if none is named).
 
 `time_ms` is the device's time of one call: the median of 20 CUDA-event
 timings after 3 warm calls, with the device held busy while the host
@@ -24,10 +29,19 @@ import subprocess
 import numpy as np
 import torch
 
-from armnet_tpu_torch.kernels import build, entmax_cuda, scatter_cuda
+from armnet_tpu_torch.kernels import arm_cuda, build, entmax_cuda, scatter_cuda
+from armnet_tpu_torch.kernels.bounds import fused_arm_bounds
 
 CRITEO_SHAPE = (4096, 39, 128)
 FRAPPE_SHAPE = (4096, 10, 128)
+# (B, F, E, dk, O) of the fused ARM-1h kernels at the cr_armnet1h and
+# frappe_armnet1h steps
+CRITEO_ARM = (4096, 39, 10, 10, 128)
+FRAPPE_ARM = (4096, 10, 10, 10, 128)
+# the ARM-Net reference's Frappe embedding sweep at its best AUC (armnet_1h
+# --nemb 100 --h 10 --alpha 1.7, BASELINE.md): embeddings wider than K6's
+# 16-wide register sums
+FRAPPE_NEMB100_ARM = (4096, 10, 100, 100, 10)
 CRITEO_NFEAT = 2_100_000
 ALPHAS = (1.5, 1.7, 2.0, 2.5)
 SEED = 2025
@@ -255,9 +269,111 @@ def bench_entmax():
                    "max_abs_err": err}
 
 
-def main(argv=None):
+def arm_inputs(g, shape):
+    """Seeded emb, wk, q, vt and dout of the fused ARM-1h kernels at
+    (B, F, E, dk, O), on the card."""
+    b, f, e, dk, o = shape
+    return (torch.randn((b, f, e), generator=g, device="cuda") * 0.5,
+            torch.randn((e, dk), generator=g, device="cuda"),
+            torch.randn((o, dk), generator=g, device="cuda"),
+            torch.randn((f, o), generator=g, device="cuda") * 0.5,
+            torch.randn((b, o, e), generator=g, device="cuda"))
+
+
+def arm_bwd_split(emb, wk, q, vt, dout, alpha):
+    """K6's device ms per call split by torch.profiler into its main kernel
+    (arm1h_bwd_kernel), the ordered sum of the per-block partials
+    (sum_rows_kernel) and any other kernel of the call."""
+    by_kernel = kernel_device_ms(
+        lambda: arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha))
+    main = [ms for k, ms in by_kernel.items() if "arm1h_bwd_kernel" in k]
+    sums = [ms for k, ms in by_kernel.items() if "sum_rows_kernel" in k]
+    if len(main) != 1 or len(sums) != 1:
+        raise RuntimeError(f"arm1h_bwd's kernels not found in the profile: "
+                           f"{sorted(by_kernel)}")
+    return {"main_ms": main[0], "sum_rows_ms": sums[0],
+            "other_ms": sum(by_kernel.values()) - main[0] - sums[0]}
+
+
+def arm_times(shape, alpha, g, composed):
+    """{"fwd"|"bwd": record} of K5 and K6 at one shape and alpha: device
+    and host-inclusive ms of the kernel, the composed path's device ms
+    (`composed(emb, wk, q, values, alpha)` with values [O, F], the
+    interaction of --kernels auto, and its autograd backward), the bound,
+    the resident blocks per SM (and K6's grid), the max abs difference
+    from the plain version and, for K6, its split and whether two calls
+    agree bit for bit."""
+    emb, wk, q, vt, dout = arm_inputs(g, shape)
+    dev = emb.device
+    f, e, dk, o = shape[1:]
+    leaves = [t.clone().requires_grad_() for t in (emb, wk, q, vt)]
+    graph = composed(leaves[0], leaves[1], leaves[2], leaves[3].t(), alpha)
+    got = arm_cuda.arm1h_fwd_kernel(emb, wk, q, vt, alpha)
+    grads = arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha)
+    again = arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha)
+    fwd_err = float((got - arm_cuda.arm1h_fwd_plain(
+        emb, wk, q, vt, alpha)).abs().max())
+    bwd_err = max(float((a - w).abs().max()) for a, w in zip(
+        grads, arm_cuda.arm1h_bwd_plain(emb, wk, q, vt, dout, alpha)))
+    bounds = fused_arm_bounds(shape, alpha)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    calls = {
+        "fwd": (lambda: arm_cuda.arm1h_fwd_kernel(emb, wk, q, vt, alpha),
+                lambda: composed(emb, wk, q, vt.t(), alpha)),
+        "bwd": (lambda: arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout,
+                                                  alpha),
+                lambda: torch.autograd.grad(graph, leaves, dout,
+                                            retain_graph=True))}
+    out = {}
+    for kind, (kernel, comp) in calls.items():
+        bound_ms, by, nbytes, nops = bounds[kind]
+        out[kind] = {"ms": time_ms(kernel),
+                     "host_incl_ms": host_incl_ms(kernel),
+                     "composed_ms": time_ms(comp), "bound_ms": bound_ms,
+                     "bound_by": by, "bytes": nbytes,
+                     "f32_instruction_slots": nops}
+    out["fwd"].update(max_abs_err=fwd_err,
+                      blocks_per_sm=arm_cuda.fwd_blocks_per_sm(f, e, dk, o,
+                                                               alpha))
+    grid = arm_cuda.bwd_grid(shape[0], f, e, dk, o, alpha, dev)
+    out["bwd"].update(
+        max_abs_err=bwd_err, bitwise_equal=all(
+            torch.equal(a, b) for a, b in zip(grads, again)),
+        blocks_per_sm=arm_cuda.bwd_blocks_per_sm(f, e, dk, o, alpha),
+        grid=grid, grid_blocks_per_sm=grid / sms,
+        **arm_bwd_split(emb, wk, q, vt, dout, alpha))
+    return out
+
+
+def bench_arm(composed):
+    """K5/K6 records (arm_times) at the Criteo and Frappe steps, and Frappe
+    at nemb 100, at every alpha, after the registers and spills of their
+    40-field bucket; `composed` is the interaction they are timed beside
+    (arm_times)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    ptxas = {}
+    for n in (n for n in build.sources() if n.startswith("arm1h")):
+        ptxas.update({k: v for k, v in ptxas_report(build.build_log(
+            n)).items() if "<40," in k or k == "sum_rows_kernel"})
+    yield {"arm_ptxas": ptxas}
+    for name, shape in (("criteo", CRITEO_ARM), ("frappe", FRAPPE_ARM),
+                        ("frappe_nemb100", FRAPPE_NEMB100_ARM)):
+        for alpha in ALPHAS:
+            for kind, rec in arm_times(shape, alpha, g, composed).items():
+                yield {f"arm1h_{kind}": name,
+                       "shape": dict(zip("BFEDO", shape)), "alpha": alpha,
+                       **rec}
+
+
+def main(composed_arm, argv=None):
+    """Runs the named sections; `composed_arm` is the interaction that the
+    arm section times K5/K6 beside."""
+    sections = {"entmax": bench_entmax, "table_grad": bench_table_grad,
+                "arm": lambda: bench_arm(composed_arm)}
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out")
+    p.add_argument("sections", nargs="*", choices=list(sections),
+                   help="what to measure (default: all)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench: CUDA is not available")
@@ -279,14 +395,17 @@ def main(argv=None):
     emit({"build_s": build.build_all()})
     emit({"ptxas": {n: ptxas_report(build.build_log(n))
                     for n in build.sources()}})
-    for rec in bench_entmax():
-        emit(rec)
-    for rec in bench_table_grad():
-        emit(rec)
+    for section in args.sections or sections:
+        for rec in sections[section]():
+            emit(rec)
     if out:
         out.close()
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    # the program's entry wires in the composed path from the ops layer;
+    # nothing else of this module imports above the kernels
+    from armnet_tpu_torch.ops.interaction import arm1h_interaction
+
+    raise SystemExit(main(composed_arm=arm1h_interaction))

@@ -45,10 +45,6 @@
 
 namespace armnet {
 
-__host__ __device__ constexpr bool is_bisect(int mode) {
-  return mode == BISECT1 || mode == BISECT2 || mode == BISECT3;
-}
-
 // threads per block: 128 in the bisection modes, 256 in FASTPOW and NEWTON
 // (each the faster there)
 __host__ __device__ constexpr int fwd_threads(int mode) {

@@ -33,6 +33,10 @@ namespace armnet {
 enum Mode { BISECT1 = 0, BISECT2 = 1, BISECT3 = 2, FASTPOW = 3, NEWTON = 4 };
 enum GMode { G_ONE = 0, G_SQRT = 1, G_POW = 2 };
 
+__host__ __device__ constexpr bool is_bisect(int mode) {
+  return mode == BISECT1 || mode == BISECT2 || mode == BISECT3;
+}
+
 constexpr int kFastBisect = 12;
 constexpr int kPolish = 4;
 constexpr int kBisect = 8;

@@ -22,9 +22,13 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               the bound
      kernel_arm  the fused ARM-1h forward (K5) and recompute backward (K6)
               against their plain versions at the Criteo and Frappe steps,
-              a ragged batch and one row, at four alphas, K6 twice
-              (bitwise equal); kernel, plain and composed-path times
-              beside the bound
+              a ragged batch, one row, O 200 and 96, F 16 and 17, fewer
+              rows than K6's grid, and wide embeddings (Frappe at nemb
+              100 with h 10, Criteo's fields at nemb 40), at four
+              alphas, K6 twice (bitwise equal); kernel, plain and
+              composed-path times beside the bound, blocks per SM, K6's
+              grid and its split into its main kernel and the ordered
+              sum of the blocks' partials
   4. serve    armnet_tpu_torch.predict at the Criteo width of the
               cr_armnet1h preset (nfeat 2.1M, 39 fields, E=10, h=128, MLP
               2x500, alpha 2.0), ensemble off and on, on a seeded synthetic
@@ -73,12 +77,15 @@ from armnet_tpu_torch.data.libsvm import (BatchIterator, LibsvmDataset,
                                           make_dataloaders)
 from armnet_tpu_torch.kernels import (arm_cuda, build, entmax_cuda,
                                       scatter_cuda)
-from armnet_tpu_torch.kernels.bench import (criteo_ids, host_incl_ms,
+from armnet_tpu_torch.kernels.bench import (CRITEO_ARM, FRAPPE_ARM,
+                                            FRAPPE_NEMB100_ARM,
+                                            arm_bwd_split, arm_inputs,
+                                            criteo_ids, host_incl_ms,
                                             ptxas_report, table_grad_cases,
                                             table_grad_split, time_ms)
-from armnet_tpu_torch.kernels.entmax_common import (N_BISECT, N_FAST,
-                                                    N_NEWTON, N_POLISH,
-                                                    solver_mode)
+from armnet_tpu_torch.kernels.bounds import (bound, entmax_bound_ms,
+                                             entmax_bwd_ops_per_element,
+                                             fused_arm_bounds)
 from armnet_tpu_torch.models import create_model
 from armnet_tpu_torch.ops.interaction import arm1h_interaction
 from armnet_tpu_torch.train import cli
@@ -89,19 +96,8 @@ from armnet_tpu_torch.utils.config import ExperimentConfig
 from armnet_tpu_torch.utils.logging import get_logger, remove_logger
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-# 67 TFLOP/s of f32 outside the tensor cores counts an FMA as two
-# operations: one f32 instruction per lane per clock is half of it. The
-# special-function unit (lg2, ex2, rcp) and int<->float conversions issue
-# at 16 per clock per SM against 128 f32 lanes (CUDA programming guide,
-# compute capability 9.0), so each takes 8 f32 instruction slots.
-F32_INSTR_PER_S = 33.5e12
 CRITEO_SHAPE = (4096, 39, 128)
 FRAPPE_SHAPE = (4096, 10, 128)
-# (B, F, E, dk, O) of the fused ARM-1h kernels at the cr_armnet1h and
-# frappe_armnet1h steps
-CRITEO_ARM = (4096, 39, 10, 10, 128)
-FRAPPE_ARM = (4096, 10, 10, 10, 128)
 CRITEO_NFEAT = 2_100_000
 ALPHAS = (1.5, 1.7, 2.0, 2.5)
 SEED = 2025
@@ -135,78 +131,6 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def entmax_ops_per_element(alpha, n_iter=30):
-    """f32 instruction slots the entmax solve needs per input element, for
-    the bound. A lower count: an add, max, compare or select is 1, an int
-    add 2, an SFU op or a conversion 8; powf is at least lg2, multiply, ex2
-    (17) and an IEEE divide at least a reciprocal and 3 refinements (11).
-    Per-column scalar work is left out."""
-    inv_am1 = 1.0 / (alpha - 1.0)
-    mode = solver_mode(alpha)
-    pow_cost = {1.0: 0, 2.0: 1, 3.0: 2}.get(inv_am1, 17)
-    evaluate = 3 + pow_cost             # subtract, clamp, pow, add
-    common = 2 + evaluate + 11          # scale, max; last pass, divide
-    if mode == "bisect":                # f(tau_lo), then n_iter steps
-        return common + evaluate * (min(n_iter, 30) + 1)
-    # subtract, clamp, pow, add, compare, clamp, divide, select, add
-    newton = evaluate + 4 + 11
-    if mode == "fastpow":
-        # subtract, clamp, int subtract, i2f, mul, add, max, min, f2i,
-        # compare+select, add
-        fast = 1 + 1 + 2 + 8 + 1 + 1 + 1 + 1 + 8 + 2 + 1
-        return common + fast * N_FAST + newton * N_POLISH
-    return common + evaluate * N_BISECT + newton * N_NEWTON
-
-
-def entmax_bound_ms(shape, alpha):
-    numel = math.prod(shape)
-    return bound(2 * 4 * numel, entmax_ops_per_element(alpha) * numel)
-
-
-def entmax_bwd_ops_per_element(alpha):
-    """f32 instruction slots of the entmax backward per element, a lower
-    count as above: compare and select (2), g (0 at alpha 2; an IEEE sqrt,
-    at least a reciprocal square root and 3 refinements, 11; else a max
-    and powf, 18), then dy*g, the two sums, q*g and a subtract (5)."""
-    g_cost = {0.0: 0, 0.5: 11}.get(2.0 - alpha, 18)
-    return 2 + g_cost + 5
-
-
-def bound(nbytes, nops):
-    """(bound ms, 'bytes' | 'operations'): the larger of bytes over the
-    memory rate and f32 instruction slots over the instruction rate."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / F32_INSTR_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                           "operations")
-
-
-def fused_arm_bounds(shape, alpha):
-    """{"fwd"|"bwd": (bound ms, bound_by, bytes, f32 instruction slots)} of
-    the fused ARM-1h kernels K5 and K6 at (B, F, E, dk, O), by the same
-    counts as the other kernels: bytes of each input read once and each
-    output written once; f32 instruction slots with a multiply-add as
-    one, exp as 8 plus 2, and the entmax solve and VJP as
-    entmax_ops_per_element and entmax_bwd_ops_per_element."""
-    b, f, e, dk, o = shape
-    bfo, boe, bfe = b * f * o, b * o * e, b * f * e
-    keys, gates, cross = bfe * dk, b * f * dk * o, b * o * f * e
-    fwd_ops = (keys + gates + entmax_ops_per_element(alpha) * bfo + bfo
-               + cross + 10 * boe)
-    # backward: the forward replay, then dz, dw, ds, the entmax VJP, dkeys,
-    # the two terms of de, dWk, dquery and dvalues
-    bwd_ops = (fwd_ops + boe + cross + bfo
-               + entmax_bwd_ops_per_element(alpha) * bfo + gates + cross
-               + keys + keys + gates + 2 * bfo)
-    weights = 4 * (e * dk + o * dk + f * o)
-    out = {}
-    for name, nbytes, nops in (
-            ("fwd", 4 * (bfe + boe) + weights, fwd_ops),
-            ("bwd", 4 * (2 * bfe + boe) + 2 * weights, bwd_ops)):
-        out[name] = (*bound(nbytes, nops), nbytes, nops)
-    return out
-
-
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -230,7 +154,7 @@ def main_path_instantiations():
              for d in (39, 10)}
     names |= {f"entmax_bwd_kernel<{b},{bwd}>" for b in (64, 16)}
     names |= {f"arm1h_fwd_kernel<40,{fwd}>", f"arm1h_bwd_kernel<40,{fwd},"
-              f"{bwd}>", "sum_rows_kernel"}
+              f"{bwd},0>", "sum_rows_kernel"}
     names |= {f"radix_{k}_kernel<int>" for k in ("count", "scatter")}
     return names | {"radix_scan_kernel", "zero_kernel", "segment_kernel",
                     "long_segment_kernel"}
@@ -483,21 +407,14 @@ def phase_kernel_table_grad():
     return out
 
 
-def arm_inputs(g, shape):
-    """Seeded emb, wk, q, vt and dout of the fused ARM-1h kernels at
-    (B, F, E, dk, O), on the card."""
-    b, f, e, dk, o = shape
-    return (torch.randn((b, f, e), generator=g, device="cuda") * 0.5,
-            torch.randn((e, dk), generator=g, device="cuda"),
-            torch.randn((o, dk), generator=g, device="cuda"),
-            torch.randn((f, o), generator=g, device="cuda") * 0.5,
-            torch.randn((b, o, e), generator=g, device="cuda"))
-
-
 def phase_kernel_arm():
     """K5 and K6 against their plain versions on the card at the Criteo and
-    Frappe steps, a ragged batch and one row, at four alphas: the forward
-    within rtol/atol 2e-5, the four gradients within rtol 5e-4, atol 5e-5
+    Frappe steps, a ragged batch, one row, more neurons than a block's 128
+    threads (O 200), a part of a block (O 96), F at the register bucket's
+    edge (16, 17), fewer rows than K6's grid, and embeddings wider than
+    K6's 16-wide register sums (Frappe at nemb 100 with h 10, Criteo's
+    fields at nemb 40), at four alphas: the forward within rtol/atol
+    2e-5, the four gradients within rtol 5e-4, atol 5e-5
     (the JAX package's tolerances for its fused kernel,
     tests/test_arm_pallas.py), and K6 equal to itself bit for bit. Times
     at the Criteo step: kernel, plain version and the composed path of
@@ -506,7 +423,11 @@ def phase_kernel_arm():
     computes this function."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     cases = [CRITEO_ARM, FRAPPE_ARM, (4095, 39, 10, 10, 128),
-             (1, 39, 10, 10, 128)]
+             (1, 39, 10, 10, 128), (512, 39, 10, 10, 200),
+             (512, 39, 10, 10, 96), (512, 16, 10, 10, 128),
+             (512, 17, 10, 10, 128), (100, 39, 10, 10, 128),
+             FRAPPE_NEMB100_ARM, (512, 39, 40, 40, 128)]
+    rows, f, e, dk, o = CRITEO_ARM
     stats = {}
     for alpha in ALPHAS:
         ferrs, berrs = [], []
@@ -548,6 +469,14 @@ def phase_kernel_arm():
                     lambda: torch.autograd.grad(composed, leaves, dout,
                                                 retain_graph=True))}
         bounds = fused_arm_bounds(CRITEO_ARM, alpha)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        grid = arm_cuda.bwd_grid(rows, f, e, dk, o, alpha, emb.device)
+        launch = {"fwd": {"blocks_per_sm": arm_cuda.fwd_blocks_per_sm(
+                      f, e, dk, CRITEO_ARM[4], alpha)},
+                  "bwd": {"blocks_per_sm": arm_cuda.bwd_blocks_per_sm(
+                      f, e, dk, o, alpha), "grid": grid,
+                      "grid_blocks_per_sm": grid / sms,
+                      **arm_bwd_split(emb, wk, q, vt, dout, alpha)}}
         for kind, errs in (("fwd", ferrs), ("bwd", berrs)):
             kernel, plain, comp = times[kind]
             ms, plain_ms, composed_ms = (time_ms(kernel),
@@ -558,12 +487,13 @@ def phase_kernel_arm():
             stats[(kind, alpha)] = {
                 "ms": ms, "host_incl_ms": incl_ms, "plain_ms": plain_ms,
                 "composed_ms": composed_ms, "bound_ms": bound_ms,
-                "bound_by": by, "max_abs_err": max(errs)}
+                "bound_by": by, "max_abs_err": max(errs), **launch[kind]}
             log("kernel_arm", name=f"arm1h_{kind}", alpha=alpha,
                 shape=dict(zip("BFEDO", CRITEO_ARM)), ms=ms,
                 host_incl_ms=incl_ms, plain_ms=plain_ms, composed_ms=composed_ms,
                 bound_us=bound_ms * 1e3, bound_by=by, bytes=nbytes,
                 f32_instruction_slots=nops, max_abs_err=max(errs),
+                **launch[kind],
                 tol="rtol/atol 2e-5" if kind == "fwd" else
                     "rtol 5e-4, atol 5e-5; bitwise equal to itself",
                 library="none: no single PyTorch call computes the fused "
@@ -1160,7 +1090,7 @@ def main():
          **arm[(kind, 2.0)], "library_ms": None,
          "shape": dict(zip("BFEDO", CRITEO_ARM)), "alpha": 2.0}
         for kind, line, source in (("fwd", 184, "arm1h.cu"),
-                                   ("bwd", 211, "arm1h_bwd.cu"))]
+                                   ("bwd", 211, "arm1h_bwd.cuh"))]
 
     crit = tg["criteo_batch"]
     zipf = {k[len("zipf_"):]: {"table_grad_ms": v["whole_ms"],

@@ -99,6 +99,54 @@ def test_fused_matches_composed(alpha):
         torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-5, msg=name)
 
 
+# the kernels' edges (their plain versions are the yardstick on the card):
+# more neurons than a block's 128 threads (K6 takes them in chunks), part
+# of a block, F on each side of the 16-field register bucket's edge, and
+# embeddings wider than K6's 16-wide register sums (Frappe at nemb 100
+# with h 10; widths that are not a multiple of 16); one alpha per shape of
+# each group, so each solver branch is met
+EDGE_CASES = [((6, 7, 4, 4, 200), 2.0), ((6, 7, 4, 4, 96), 1.7),
+              ((5, 17, 4, 4, 20), 2.5), ((5, 16, 4, 3, 130), 1.5),
+              ((3, 10, 100, 100, 10), 2.0), ((4, 9, 33, 20, 12), 1.7),
+              ((3, 17, 20, 35, 7), 2.5), ((3, 5, 40, 17, 9), 1.5)]
+
+
+@pytest.mark.parametrize("shape,alpha", EDGE_CASES)
+def test_plain_versions_match_jax_at_edge_shapes(shape, alpha):
+    """The forward (rtol/atol 2e-5) and the four gradients (rtol 5e-4,
+    atol 5e-5) of the plain versions against the JAX fused kernel in
+    interpret mode and jax.grad through it."""
+    b, f, e, dk, o = shape
+    arrays = _inputs(b=b, f=f, e=e, dk=dk, o=o, seed=o + f)
+    jarrays = list(map(jnp.asarray, arrays))
+    want = np.asarray(jax_arm1h_fused(*jarrays, alpha))
+    want_g = jax.grad(lambda *a: jnp.sum(jnp.sin(jax_arm1h_fused(*a, alpha))),
+                      argnums=(0, 1, 2, 3))(*jarrays)
+    got, got_g = _port_grads(arm1h_fused, arrays, alpha)
+    assert got.shape == want.shape == (b, o, e)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=2e-5,
+                               atol=2e-5)
+    for name, g, w in zip(("emb", "wk", "query", "values"), got_g, want_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-4,
+                                   atol=5e-5, err_msg=name)
+
+
+def _pad4(n):
+    return (n + 3) // 4 * 4
+
+
+@pytest.mark.parametrize("f,e,dk,o", [(39, 10, 10, 128), (10, 10, 10, 128),
+                                      (40, 16, 16, 200), (1, 1, 1, 1),
+                                      (17, 5, 7, 96)])
+def test_smem_bytes_follow_the_kernels_layouts(f, e, dk, o):
+    """The forward wrapper's shared-memory size against the layout
+    documented in csrc/arm1h.cu (fwd_smem): emb and keys with rows padded
+    to 4 floats, then the row's outputs [O, E]. (K6's layout has one owner,
+    csrc/arm1h_bwd.cuh, which the wrapper asks through its C entry.)"""
+    assert arm_cuda.fwd_smem_bytes(f, e, dk, o) == 4 * (
+        f * _pad4(e) + f * _pad4(dk) + o * e)
+
+
 def test_fused_dispatch_and_refusals():
     """arm1h_interaction takes the fused path under pallas-fused only, and
     only for a static alpha > 1; the plain versions count no launch."""

@@ -333,10 +333,19 @@ def test_train_step_gpu_matches_cpu(cuda, ensemble, kernels):
 
 # (B, F, E, dk, O): the Criteo and Frappe steps at a cut batch, a ragged
 # batch, small widths with O below and above the block's 128 threads, one
-# row, and F at each register bucket's edge (16, 40)
+# row, and F at each register bucket's edge (16, 40); at Criteo widths O
+# 200 (two chunks of neurons) and 96 (part of one), F 16 and 17, more rows
+# than K6's grid (its blocks loop over rows), E = dk = 16 (one pass of K6's
+# register sums), and wider embeddings that take several: Frappe at nemb
+# 100 with h 10, widths that are not a multiple of 16, and 128, the widest
+# K6's shared memory holds at 39 fields
 ARM_SHAPES = [(256, 39, 10, 10, 128), (257, 10, 10, 10, 128),
               (24, 7, 6, 6, 9), (5, 16, 4, 3, 200), (1, 39, 10, 10, 128),
-              (9, 40, 5, 7, 33), (3, 17, 4, 4, 130)]
+              (9, 40, 5, 7, 33), (3, 17, 4, 4, 130), (64, 39, 10, 10, 200),
+              (64, 39, 10, 10, 96), (64, 16, 10, 10, 128),
+              (64, 17, 10, 10, 128), (1100, 39, 10, 10, 128),
+              (6, 5, 16, 16, 20), (64, 10, 100, 100, 10),
+              (16, 39, 33, 20, 130), (4, 39, 128, 128, 16)]
 
 
 def _arm_inputs(cuda, shape, seed=0):
@@ -398,5 +407,38 @@ def test_arm1h_kernels_count_launches_and_reject(cuda):
         fwd(emb, wk, q, vt, 1.0)
     with pytest.raises(ValueError, match="fit"):
         arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout[:4], 2.0)
+    wide = torch.zeros((2, 39, 200), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        arm_cuda.arm1h_bwd_kernel(wide, torch.zeros((200, 200), device=cuda),
+                                  torch.zeros((128, 200), device=cuda), vt,
+                                  torch.zeros((2, 128, 200), device=cuda),
+                                  2.0)
     assert arm_cuda.LAUNCHES == before[0] + 1
     assert arm_cuda.BWD_LAUNCHES == before[1] + 1
+
+
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_arm1h_bwd_grid_holds_16_warps_per_sm(cuda, alpha):
+    """At the cr_armnet1h widths K6's grid is at least 4 blocks of 128
+    threads (16 warps) per SM, as many as the occupancy calculator allows,
+    and at most one block per row."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    per_sm = arm_cuda.bwd_blocks_per_sm(39, 10, 10, 128, alpha)
+    assert per_sm >= 4
+    assert arm_cuda.bwd_grid(4096, 39, 10, 10, 128, alpha, cuda) == \
+        per_sm * sms
+    assert arm_cuda.bwd_grid(7, 39, 10, 10, 128, alpha, cuda) == 7
+    assert arm_cuda.fwd_blocks_per_sm(39, 10, 10, 128, alpha) >= 4
+
+
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_arm1h_bwd_grid_at_wide_embeddings(cuda, alpha):
+    """K6's wide build holds the 3 blocks per SM its registers are sized
+    for at Frappe's fields with nemb 100 and h 10 (query and dz rows for 10
+    neurons, fewer contraction groups), at least one up to E = dk = 128 at
+    39 fields and 128 neurons, none past it, and its grid raises there."""
+    assert arm_cuda.bwd_blocks_per_sm(10, 100, 100, 10, alpha) >= 3
+    assert arm_cuda.bwd_blocks_per_sm(39, 128, 128, 128, alpha) >= 1
+    assert arm_cuda.bwd_blocks_per_sm(39, 129, 129, 128, alpha) == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        arm_cuda.bwd_grid(64, 39, 129, 129, 128, alpha, cuda)

@@ -110,7 +110,11 @@ def test_forward_register_bucket(d):
     ("_ZN12_GLOBAL__N_118radix_count_kernelIiEEvPKT_iiiPil",
      "radix_count_kernel<int>"),
     ("_ZN12_GLOBAL__N_114segment_kernelEPKfPKiS3_iiiPfS4_Pi",
-     "segment_kernel")])
+     "segment_kernel"),
+    ("_ZN6armnet16arm1h_bwd_kernelILi40ELi0ELi0ELi1EEEvPKfS2_S2_S2_S2_PfS3_"
+     "iiiiiiiiffff", "arm1h_bwd_kernel<40,0,0,1>"),
+    ("_ZN40_GLOBAL__N__221e5152_8_arm1h_cu_7092d6f316arm1h_fwd_kernelILi40E"
+     "Li3EEEvPKfS2_S2_S2_Pfiiiiiffff", "arm1h_fwd_kernel<40,3>")])
 def test_ptxas_report_names_each_instantiation(mangled, name):
     """kernels/bench.ptxas_report reads nvcc's -Xptxas -v log into
     registers and spills by instantiation, the names the smoke's build
