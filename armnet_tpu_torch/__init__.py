@@ -17,7 +17,8 @@ Layers (bottom-up):
 
 Entry points run on the card unless the caller asks for the CPU; kernel
 dispatch goes by tensor device (CUDA tensor -> kernel, CPU tensor -> plain
-version).
+version). They set the f32 GEMM precision from --matmul_precision
+(`set_matmul_precision`).
 """
 
 import torch
@@ -34,3 +35,23 @@ def resolve_device(name):
             f"device {name!r} requested but CUDA is not available; "
             f"pass --device cpu to run on the CPU")
     return device
+
+
+# --matmul_precision -> whether float32 GEMMs and convolutions may use TF32
+_TF32 = {"default": False, "highest": False, "high": True}
+
+
+def set_matmul_precision(precision):
+    """Set the float32 GEMM precision for the process, as the JAX CLI sets
+    jax_default_matmul_precision: 'default' and 'highest' keep full f32
+    (the port's choice, which its parity tests assume; JAX's 'default' is
+    its TPU's bf16 passes, which the card has no counterpart of), 'high'
+    allows TF32 in matrix products and convolutions. Any other value
+    raises ValueError."""
+    if precision not in _TF32:
+        raise ValueError(f"--matmul_precision takes {sorted(_TF32)}, got "
+                         f"{precision!r}")
+    tf32 = _TF32[precision]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.set_float32_matmul_precision("high" if tf32 else "highest")

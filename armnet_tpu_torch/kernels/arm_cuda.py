@@ -1,9 +1,11 @@
-"""Wrappers of the fused ARM-1h CUDA kernels: the forward (csrc/arm1h.cu),
-port of the Pallas `_fwd_call` -> `_fwd_kernel` (K5), and the recompute
-backward (csrc/arm1h_bwd.cuh, built in arm1h_bwd.cu, arm1h_bwd_fastpow.cu
-and arm1h_bwd_newton.cu for E and dk <= 16, arm1h_bwd_wide.cu and
-arm1h_bwd_wide_powf.cu for wider rows), port of `_bwd_call` ->
-`_bwd_kernel` (K6), of armnet_tpu/kernels/arm_pallas.py.
+"""Wrappers of the fused ARM-1h CUDA kernels: the forward (csrc/arm1h.cu,
+and csrc/arm1h_col.cu past 40 fields), port of the Pallas `_fwd_call` ->
+`_fwd_kernel` (K5), and the recompute backward (csrc/arm1h_bwd.cuh, built
+in arm1h_bwd.cu, arm1h_bwd_fastpow.cu and arm1h_bwd_newton.cu for E and
+dk <= 16, arm1h_bwd_wide.cu and arm1h_bwd_wide_powf.cu for wider rows, and
+arm1h_bwd_col.cu and arm1h_bwd_col_powf.cu for either past 40 fields),
+port of `_bwd_call` -> `_bwd_kernel` (K6), of
+armnet_tpu/kernels/arm_pallas.py.
 
   arm1h_fwd_kernel / arm1h_fwd_plain   emb [B, F, E], wk [E, dk], q [O, dk],
                                        vt [F, O] -> exp-cross out [B, O, E]
@@ -16,6 +18,11 @@ of kernels/entmax_common, so they take the entmax kernel's solver
 branches and budgets. The kernel wrappers launch on CUDA tensors or raise;
 nothing falls back to the plain versions. ops/interaction picks between
 the two by the tensor's device.
+
+Up to REGISTER_F fields a thread holds its gate column in registers; past
+it, in shared memory, so F is bounded by a block's shared memory alone:
+`fwd_smem_bytes` for K5, the C entry's plan (`bwd_grid`) for K6, each
+raising a ValueError that names shared memory where its plan does not fit.
 """
 
 import ctypes
@@ -32,14 +39,15 @@ from armnet_tpu_torch.kernels.entmax_cuda import g_mode_id, mode_id
 __all__ = ["arm1h_fwd_kernel", "arm1h_fwd_plain", "arm1h_bwd_kernel",
            "arm1h_bwd_plain", "fwd_smem_bytes", "fwd_blocks_per_sm",
            "bwd_blocks_per_sm", "bwd_grid", "LAUNCHES", "BWD_LAUNCHES",
-           "MAX_F"]
+           "REGISTER_F"]
 
 # kernel launches since the count was last set to 0 (the one place that
 # adds to LAUNCHES is arm1h_fwd_kernel, to BWD_LAUNCHES arm1h_bwd_kernel,
 # each right after a successful launch)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-MAX_F = 40                 # largest register bucket of the kernels
+REGISTER_F = 40            # largest register bucket; past it the column
+                           # lives in shared memory (csrc kMaxF)
 NARROW_ED = 16             # E and dk of K6's narrow builds (csrc kMaxED)
 SMEM_BYTES = 232_448       # shared memory a block can use on Hopper
 
@@ -116,9 +124,7 @@ def _check(who, emb, wk, q, vt, alpha, dout=None):
             + ("" if dout is None else f", dout {tuple(dout.shape)}"))
     if not alpha > 1.0:
         raise ValueError(f"{who} needs alpha > 1 (softmax at 1)")
-    if not 1 <= f <= MAX_F:
-        raise ValueError(f"{who} takes 1 to {MAX_F} fields, got {f}")
-    if min(e, dk, o) < 1 or b >= 2 ** 31:
+    if min(f, e, dk, o) < 1 or b >= 2 ** 31:
         raise ValueError(f"{who}: empty or oversized dimension in "
                          f"{(b, f, e, dk, o)}")
     return b, f, e, dk, o
@@ -130,8 +136,11 @@ def _pad4(n):
 
 def fwd_smem_bytes(f, e, dk, o):
     """Shared memory of a K5 block (csrc/arm1h.cu fwd_smem): emb and keys
-    with rows padded to 4 floats, and the row's outputs [O, E]."""
-    return 4 * (f * _pad4(e) + f * _pad4(dk) + o * e)
+    with rows padded to 4 floats, and the row's outputs [O, E]; past
+    REGISTER_F fields also the threads' gate columns [F, 128]
+    (csrc/arm1h_col.cu col_smem)."""
+    cols = f * 128 if f > REGISTER_F else 0
+    return 4 * (f * _pad4(e) + f * _pad4(dk) + o * e + cols)
 
 
 def _smem_check(who, nbytes):
@@ -160,12 +169,21 @@ def _blocks_per_sm(source, entry, args):
     return n.value
 
 
-def _bwd_source(alpha, e, dk):
+def _fwd_source(f):
+    """K5's library: arm1h for the register buckets, arm1h_col past
+    REGISTER_F fields."""
+    return "arm1h" if f <= REGISTER_F else "arm1h_col"
+
+
+def _bwd_source(alpha, f, e, dk):
     """K6's library, the sources built apart so that nvcc builds them in
     parallel: arm1h_bwd (the bisection modes), arm1h_bwd_fastpow or
     arm1h_bwd_newton for E and dk <= NARROW_ED; arm1h_bwd_wide (the
-    bisection modes) or arm1h_bwd_wide_powf for wider rows."""
+    bisection modes) or arm1h_bwd_wide_powf for wider rows; past
+    REGISTER_F fields arm1h_bwd_col or arm1h_bwd_col_powf for either."""
     mode = solver_mode(alpha)
+    if f > REGISTER_F:
+        return "arm1h_bwd_col" + ("" if mode == "bisect" else "_powf")
     if max(e, dk) > NARROW_ED:
         return "arm1h_bwd_wide" + ("" if mode == "bisect" else "_powf")
     return "arm1h_bwd" if mode == "bisect" else f"arm1h_bwd_{mode}"
@@ -173,16 +191,16 @@ def _bwd_source(alpha, e, dk):
 
 def fwd_blocks_per_sm(f, e, dk, o, alpha):
     """Blocks of K5 that one SM holds at these shapes and alpha."""
-    return _blocks_per_sm("arm1h", "armnet_arm1h_fwd_blocks_per_sm",
+    return _blocks_per_sm(_fwd_source(f), "armnet_arm1h_fwd_blocks_per_sm",
                           (f, e, dk, o, mode_id(float(alpha))))
 
 
 def bwd_blocks_per_sm(f, e, dk, o, alpha):
     """Blocks of K6 that one SM of the current device holds at these shapes
-    and alpha; 0 where E and dk are too wide for a block's shared memory
-    (csrc/arm1h_bwd.cuh bwd_groups)."""
+    and alpha; 0 where its plan does not fit a block's shared memory
+    (csrc/arm1h_bwd.cuh bwd_plan)."""
     alpha = float(alpha)
-    return _blocks_per_sm(_bwd_source(alpha, e, dk),
+    return _blocks_per_sm(_bwd_source(alpha, f, e, dk),
                           "armnet_arm1h_bwd_blocks_per_sm",
                           (f, e, dk, o, mode_id(alpha), g_mode_id(alpha)))
 
@@ -192,15 +210,15 @@ _BWD_GRID = {}      # (device index, F, E, dk, O, mode) -> blocks filling it
 
 def bwd_grid(b, f, e, dk, o, alpha, device):
     """K6's persistent grid on `device`: the blocks its SMs hold at once
-    (bwd_blocks_per_sm), at most one per row. Raises where E and dk are
-    too wide for a block's shared memory."""
+    (bwd_blocks_per_sm), at most one per row. Raises where its plan does
+    not fit a block's shared memory."""
     key = (device.index, f, e, dk, o, mode_id(float(alpha)))
     if key not in _BWD_GRID:
         with torch.cuda.device(device):
             per_sm = bwd_blocks_per_sm(f, e, dk, o, alpha)
         if per_sm < 1:
             raise ValueError(
-                f"arm1h_bwd_kernel: E={e}, dk={dk} at F={f} need more "
+                f"arm1h_bwd_kernel: F={f}, E={e}, dk={dk}, O={o} need more "
                 f"shared memory than a block has")
         _BWD_GRID[key] = per_sm * \
             torch.cuda.get_device_properties(device).multi_processor_count
@@ -220,7 +238,7 @@ def arm1h_fwd_kernel(emb, wk, q, vt, alpha, n_iter=50):
         return out
     mode, steps, am1, inv_am1, c_hi = _solver_args(alpha, f, n_iter)
     fn = build.function(
-        "arm1h", "armnet_arm1h_fwd",
+        _fwd_source(f), "armnet_arm1h_fwd",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
         + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(emb.device):
@@ -260,7 +278,7 @@ def arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha, n_iter=50):
                           device=dev)
     mode, steps, am1, inv_am1, c_hi = _solver_args(alpha, f, n_iter)
     fn = build.function(
-        _bwd_source(alpha, e, dk), "armnet_arm1h_bwd",
+        _bwd_source(alpha, f, e, dk), "armnet_arm1h_bwd",
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
         + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(dev):

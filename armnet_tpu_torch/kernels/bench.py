@@ -1,5 +1,8 @@
 """Kernel measurements on one GPU: the entmax forward (K1/K2) at the serving
-shapes and every alpha, the table gradient (K7) on a Criteo batch with
+shapes and every alpha, the entmax backward (K3/K4) at the serving shapes,
+the Diabetes130 step and columns past the forward's register buckets,
+every alpha, beside its bound, with its registers, spills and blocks per
+SM, the table gradient (K7) on a Criteo batch with
 uniform and Zipf-skewed ids and all ids equal, split into its sort and its
 fill and segmented sums beside the PyTorch route it replaced and
 `zeros + index_add_`, the fused ARM-1h forward and backward (K5/K6) at the
@@ -9,7 +12,7 @@ registers and spills that ptxas reports.
 
     python -m armnet_tpu_torch.kernels.bench [--out FILE] [SECTION ...]
 
-SECTION is entmax, table_grad or arm (all three if none is named).
+SECTION is entmax, entmax_bwd, table_grad or arm (all if none is named).
 
 `time_ms` is the device's time of one call: the median of 20 CUDA-event
 timings after 3 warm calls, with the device held busy while the host
@@ -30,14 +33,24 @@ import numpy as np
 import torch
 
 from armnet_tpu_torch.kernels import arm_cuda, build, entmax_cuda, scatter_cuda
-from armnet_tpu_torch.kernels.bounds import fused_arm_bounds
+from armnet_tpu_torch.kernels.bounds import (bound,
+                                             entmax_bwd_ops_per_element,
+                                             fused_arm_bounds)
 
 CRITEO_SHAPE = (4096, 39, 128)
 FRAPPE_SHAPE = (4096, 10, 128)
+# the db_armnet1h step (armnet_tpu/utils/presets.py: batch 1024, 43 fields)
+DIABETES_SHAPE = (1024, 43, 128)
+# the entmax backward's timed shapes: the steps, then columns past the
+# forward's register buckets
+ENTMAX_BWD_SHAPES = (CRITEO_SHAPE, FRAPPE_SHAPE, DIABETES_SHAPE,
+                     (512, 100, 128), (128, 300, 128))
 # (B, F, E, dk, O) of the fused ARM-1h kernels at the cr_armnet1h and
 # frappe_armnet1h steps
 CRITEO_ARM = (4096, 39, 10, 10, 128)
 FRAPPE_ARM = (4096, 10, 10, 10, 128)
+# the db_armnet1h step: past the 40-field register bucket
+DIABETES_ARM = (1024, 43, 10, 10, 128)
 # the ARM-Net reference's Frappe embedding sweep at its best AUC (armnet_1h
 # --nemb 100 --h 10 --alpha 1.7, BASELINE.md): embeddings wider than K6's
 # 16-wide register sums
@@ -264,8 +277,38 @@ def bench_entmax():
                 return entmax_cuda.entmax_kernel(x, alpha, 1)
 
             yield {"entmax_fwd": list(shape), "alpha": alpha,
-                   "bucket": entmax_cuda.bucket_for(shape[1]),
+                   "route": entmax_cuda.route_for(shape[1]),
                    "ms": time_ms(call), "host_incl_ms": host_incl_ms(call),
+                   "max_abs_err": err}
+
+
+def bench_entmax_bwd():
+    """K3/K4 at ENTMAX_BWD_SHAPES and every alpha, y from the forward
+    kernel: device and host-inclusive ms, the bound, the max abs difference
+    from the plain version, blocks per SM; first the registers and spills
+    of its instantiations."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    yield {"entmax_bwd_ptxas": ptxas_report(build.build_log("entmax_bwd"))}
+    for shape in ENTMAX_BWD_SHAPES:
+        numel = shape[0] * shape[1] * shape[2]
+        for alpha in ALPHAS:
+            y = entmax_cuda.entmax_kernel(
+                torch.randn(shape, generator=g, device="cuda") * 3.0, alpha,
+                1)
+            dy = torch.randn(shape, generator=g, device="cuda")
+
+            def call():
+                return entmax_cuda.entmax_bwd_kernel(y, dy, alpha, 1)
+
+            err = float((call() - entmax_cuda.entmax_bwd_plain(
+                y, dy, alpha, 1)).abs().max())
+            bound_ms, by = bound(12 * numel,
+                                 entmax_bwd_ops_per_element(alpha) * numel)
+            yield {"entmax_bwd": list(shape), "alpha": alpha,
+                   "ms": time_ms(call), "host_incl_ms": host_incl_ms(call),
+                   "bound_ms": bound_ms, "bound_by": by,
+                   "blocks_per_sm": entmax_cuda.bwd_blocks_per_sm(shape[1],
+                                                                  alpha),
                    "max_abs_err": err}
 
 
@@ -295,14 +338,14 @@ def arm_bwd_split(emb, wk, q, vt, dout, alpha):
             "other_ms": sum(by_kernel.values()) - main[0] - sums[0]}
 
 
-def arm_times(shape, alpha, g, composed):
+def arm_times(shape, alpha, g, composed, split=True):
     """{"fwd"|"bwd": record} of K5 and K6 at one shape and alpha: device
     and host-inclusive ms of the kernel, the composed path's device ms
     (`composed(emb, wk, q, values, alpha)` with values [O, F], the
     interaction of --kernels auto, and its autograd backward), the bound,
     the resident blocks per SM (and K6's grid), the max abs difference
-    from the plain version and, for K6, its split and whether two calls
-    agree bit for bit."""
+    from the plain version and, for K6, whether two calls agree bit for
+    bit and, with `split`, its split by torch.profiler."""
     emb, wk, q, vt, dout = arm_inputs(g, shape)
     dev = emb.device
     f, e, dk, o = shape[1:]
@@ -340,26 +383,33 @@ def arm_times(shape, alpha, g, composed):
         max_abs_err=bwd_err, bitwise_equal=all(
             torch.equal(a, b) for a, b in zip(grads, again)),
         blocks_per_sm=arm_cuda.bwd_blocks_per_sm(f, e, dk, o, alpha),
-        grid=grid, grid_blocks_per_sm=grid / sms,
-        **arm_bwd_split(emb, wk, q, vt, dout, alpha))
+        grid=grid, grid_blocks_per_sm=grid / sms)
+    if split:
+        out["bwd"].update(arm_bwd_split(emb, wk, q, vt, dout, alpha))
     return out
 
 
 def bench_arm(composed):
-    """K5/K6 records (arm_times) at the Criteo and Frappe steps, and Frappe
-    at nemb 100, at every alpha, after the registers and spills of their
-    40-field bucket; `composed` is the interaction they are timed beside
-    (arm_times)."""
+    """K5/K6 records (arm_times) at the Criteo and Frappe steps, Frappe at
+    nemb 100 and the Diabetes130 step (43 fields: the columns in shared
+    memory), at every alpha, after the registers and spills of their
+    40-field bucket and of the shared-memory route; `composed` is the
+    interaction they are timed beside (arm_times). K6's profiler split is
+    taken at the first three steps only: one process that opened more
+    torch.profiler sessions saw the last of them return no events."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     ptxas = {}
     for n in (n for n in build.sources() if n.startswith("arm1h")):
         ptxas.update({k: v for k, v in ptxas_report(build.build_log(
-            n)).items() if "<40," in k or k == "sum_rows_kernel"})
+            n)).items() if "<40," in k or "<0," in k or "_col_" in k
+            or k == "sum_rows_kernel"})
     yield {"arm_ptxas": ptxas}
     for name, shape in (("criteo", CRITEO_ARM), ("frappe", FRAPPE_ARM),
-                        ("frappe_nemb100", FRAPPE_NEMB100_ARM)):
+                        ("frappe_nemb100", FRAPPE_NEMB100_ARM),
+                        ("diabetes", DIABETES_ARM)):
         for alpha in ALPHAS:
-            for kind, rec in arm_times(shape, alpha, g, composed).items():
+            for kind, rec in arm_times(shape, alpha, g, composed,
+                                       name != "diabetes").items():
                 yield {f"arm1h_{kind}": name,
                        "shape": dict(zip("BFEDO", shape)), "alpha": alpha,
                        **rec}
@@ -368,7 +418,8 @@ def bench_arm(composed):
 def main(composed_arm, argv=None):
     """Runs the named sections; `composed_arm` is the interaction that the
     arm section times K5/K6 beside."""
-    sections = {"entmax": bench_entmax, "table_grad": bench_table_grad,
+    sections = {"entmax": bench_entmax, "entmax_bwd": bench_entmax_bwd,
+                "table_grad": bench_table_grad,
                 "arm": lambda: bench_arm(composed_arm)}
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out")

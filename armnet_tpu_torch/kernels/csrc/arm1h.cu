@@ -82,8 +82,10 @@ decltype(&arm1h_fwd_kernel<MAXF, BISECT1>) pick_fwd(int mode) {
   }
 }
 
-// the kernel of F's register bucket (16 or 40) and the solver mode
+// the kernel of F's register bucket (16 or 40) and the solver mode;
+// nullptr past 40 fields (arm1h_col.cu takes those)
 decltype(&arm1h_fwd_kernel<16, BISECT1>) pick_fwd(int F, int mode) {
+  if (F > kMaxF) return nullptr;
   return F <= 16 ? pick_fwd<16>(mode) : pick_fwd<kMaxF>(mode);
 }
 
@@ -91,7 +93,8 @@ decltype(&arm1h_fwd_kernel<16, BISECT1>) pick_fwd(int F, int mode) {
 
 // out [B, O, E] = the fused ARM-1h forward of emb [B, F, E], wk [E, DK],
 // q [O, DK], vt [F, O]; one block per row. Returns the cudaError_t of the
-// launch (0 on success). F <= 40.
+// launch (0 on success). F <= 40 (arm1h_col.cu's entry of the same name
+// takes more).
 extern "C" int armnet_arm1h_fwd(const float* emb, const float* wk,
                                 const float* q, const float* vt, float* out,
                                 int B, int F, int E, int DK, int O, int mode,

@@ -35,7 +35,13 @@
 // forms its gate column in registers (a compile-time MAXF bucket, 16 or
 // 40) and runs the column solve there; in the bisection modes the bucket's
 // entries past F hold -inf and each step clamps with one instruction
-// (entmax_column's PAD), as the entmax forward does. E and dk take any
+// (entmax_column's PAD), as the entmax forward does. Past 40 fields the
+// column lives in shared memory instead, [F][128] so that thread o reads
+// bank o, and the solve is entmax_column_strided (the same bits): K5's
+// arm1h_col.cu, K6's MAXF = 0 instantiations in arm1h_bwd_col.cu and
+// arm1h_bwd_col_powf.cu, each a build unit of its own so that the
+// register buckets keep their code. F is then bounded by shared memory
+// alone (arm_cuda.fwd_smem_bytes, bwd_plan). E and dk take any
 // width: K5 sums 4 of them at a time; K6 keeps a column's sums over e and
 // d in registers up to kMaxED (16, the presets' 10 included) and has a
 // build of its own for the wider embeddings of an nemb sweep (30-120),
@@ -72,10 +78,12 @@
 // are the JAX package's for its fused kernel (forward 2e-5, the four
 // gradients rtol 5e-4 / atol 5e-5).
 //
-// K5 is built from arm1h.cu, K6 from arm1h_bwd.cu (the bisection modes),
-// arm1h_bwd_fastpow.cu and arm1h_bwd_newton.cu (one powf mode each), and
-// for wide rows arm1h_bwd_wide.cu and arm1h_bwd_wide_powf.cu, so that nvcc
-// builds them in parallel; this header holds what they share,
+// K5 is built from arm1h.cu (and arm1h_col.cu past 40 fields), K6 from
+// arm1h_bwd.cu (the bisection modes), arm1h_bwd_fastpow.cu and
+// arm1h_bwd_newton.cu (one powf mode each), for wide rows
+// arm1h_bwd_wide.cu and arm1h_bwd_wide_powf.cu, and past 40 fields
+// arm1h_bwd_col.cu and arm1h_bwd_col_powf.cu, so that nvcc builds them in
+// parallel; this header holds what they share,
 // arm1h_bwd.cuh K6's kernel.
 
 #pragma once
@@ -163,6 +171,21 @@ __device__ __forceinline__ void gate_column(float (&v)[MAXF],
     v[f] = f < F ? __fmul_rn(__fmul_rn(v[f], scale), am1) : pad;
 }
 
+// col[f * stride] = gate_column's v[f] for f < F: the gate column in
+// shared memory, for F past the register buckets; the same products and
+// sums in the same order, so the gates keep their bits
+__device__ __forceinline__ void gate_column_strided(
+    float* col, int stride, const float* keys_s, const float* __restrict__ qo,
+    int F, int DK, float scale, float am1) {
+  const int dp = pad4(DK);
+  for (int f = 0; f < F; ++f) {
+    const float* kr = keys_s + f * dp;
+    float s = __fmul_rn(kr[0], qo[0]);
+    for (int d = 1; d < DK; ++d) s = __fadd_rn(s, __fmul_rn(kr[d], qo[d]));
+    col[f * stride] = __fmul_rn(__fmul_rn(s, scale), am1);
+  }
+}
+
 // acc[e] += x * row[e] for e < min(n, kMaxED), row padded to float4s
 __device__ __forceinline__ void axpy_row(float (&acc)[kMaxED], float x,
                                          const float* row, int n) {
@@ -187,7 +210,17 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 inline bool dims_ok(int B, int F, int E, int DK, int O) {
-  return B >= 1 && F >= 1 && F <= kMaxF && E >= 1 && DK >= 1 && O >= 1;
+  return B >= 1 && F >= 1 && E >= 1 && DK >= 1 && O >= 1;
+}
+
+// the shared memory a block may use on the current device, or 0
+inline size_t smem_optin() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return (size_t)optin;
 }
 
 // *blocks = the blocks of `kernel` that one SM holds with `smem` bytes of

@@ -19,7 +19,7 @@ BwdKernel pick_bucket(int mode, int gmode) {
 }
 
 BwdKernel pick_bwd(int F, int mode, int gmode, bool wide) {
-  if (wide) return nullptr;
+  if (wide || F > kMaxF) return nullptr;
   return F <= 16 ? pick_bucket<16>(mode, gmode)
                  : pick_bucket<kMaxF>(mode, gmode);
 }

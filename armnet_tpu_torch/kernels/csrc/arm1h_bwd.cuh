@@ -5,9 +5,11 @@
 // arm1h_bwd.cu the bisection modes, arm1h_bwd_fastpow.cu and
 // arm1h_bwd_newton.cu one powf mode each, all for E and dk <= kMaxED;
 // arm1h_bwd_wide.cu and arm1h_bwd_wide_powf.cu the same modes for wider
-// rows. The width is a template argument so that the narrow kernels keep
-// their registers: a runtime branch to the wide code, in the same kernel,
-// spilled in bucket 40 and slowed it 3-10% (PERF.md).
+// rows; arm1h_bwd_col.cu and arm1h_bwd_col_powf.cu both widths past 40
+// fields, with MAXF = 0: the thread's column y in shared memory. The width
+// and the column's place are template arguments so that the narrow kernels
+// keep their registers: a runtime branch to the wide code, in the same
+// kernel, spilled in bucket 40 and slowed it 3-10% (PERF.md).
 
 #pragma once
 
@@ -32,14 +34,16 @@ constexpr int kTile = kThreads + 1;    // row stride of the [F, 129] tile
 //   tile   [F, 129]         dg, then w, of the chunk's columns
 //   part_a [G, F, pad4(DK)] the contraction groups' partial dkeys / s
 //   part_b [G, F, pad4(E)]  their partial sums of w dz
+//   col    [F, C]           past 40 fields, the threads' columns y (C 128)
 // total floats in `total`. The narrow build: R = QR = 128, G = 128 / F.
-// The wide one (bwd_wide_layout) sizes R by O, and G by what fits.
+// The wide one (bwd_wide_layout) sizes R by O, and G by what fits. Past 40
+// fields QR is at least F (dkeys [F, DK] takes the query rows' place).
 struct BwdLayout {
-  int ep, dp, groups, keys, q, dz, tile, part_a, part_b, total;
+  int ep, dp, groups, keys, q, dz, tile, part_a, part_b, col, total;
 };
 
 __host__ __device__ inline BwdLayout bwd_layout(int F, int E, int DK, int QR,
-                                                int R, int G) {
+                                                int R, int G, int C = 0) {
   BwdLayout l;
   l.ep = pad4(E);
   l.dp = pad4(DK);
@@ -50,23 +54,34 @@ __host__ __device__ inline BwdLayout bwd_layout(int F, int E, int DK, int QR,
   l.tile = l.dz + R * l.ep;
   l.part_a = l.tile + pad4(F * kTile);
   l.part_b = l.part_a + G * F * l.dp;
-  l.total = l.part_b + G * F * l.ep;
+  l.col = l.part_b + G * F * l.ep;
+  l.total = l.col + F * C;
   return l;
+}
+
+// the narrow build's layout past 40 fields: 128 chunk rows, at least F
+// query rows, G groups, the threads' columns
+__host__ __device__ inline BwdLayout bwd_col_layout(int F, int E, int DK,
+                                                    int G) {
+  return bwd_layout(F, E, DK, F > kThreads ? F : kThreads, kThreads, G,
+                    kThreads);
 }
 
 // the wide build's layout: R = min(O, 128) columns a chunk, the query rows
 // at least F (dkeys [F, DK] takes their place), G groups
 __host__ __device__ inline BwdLayout bwd_wide_layout(int F, int E, int DK,
-                                                     int O, int G) {
+                                                     int O, int G,
+                                                     int C = 0) {
   const int rows = O < kThreads ? O : kThreads;
-  return bwd_layout(F, E, DK, rows > F ? rows : F, rows, G);
+  return bwd_layout(F, E, DK, rows > F ? rows : F, rows, G, C);
 }
 
 // *groups = the wide build's contraction groups at these shapes on the
-// current device: at most 128 / F and the chunk's columns, and as many as
-// leave kBwdWideMinBlocks blocks room on an SM; where even one does not,
-// as many as one block holds; 0 where not even one fits
-inline cudaError_t bwd_wide_groups(int F, int E, int DK, int O,
+// current device: at most 128 / F (at least 1) and the chunk's columns,
+// and as many as leave kBwdWideMinBlocks blocks room on an SM; where even
+// one does not, as many as one block holds; 0 where not even one fits.
+// C: the columns' floats a field (kThreads past 40 fields, else 0)
+inline cudaError_t bwd_wide_groups(int F, int E, int DK, int O, int C,
                                    int* groups) {
   int dev = 0, optin = 0, per_sm = 0, reserved = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -80,7 +95,7 @@ inline cudaError_t bwd_wide_groups(int F, int E, int DK, int O,
     err = cudaDeviceGetAttribute(
         &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   if (err != cudaSuccess) return err;
-  const BwdLayout fixed = bwd_wide_layout(F, E, DK, O, 0);
+  const BwdLayout fixed = bwd_wide_layout(F, E, DK, O, 0, C);
   const int64_t per_group = (int64_t)F * (fixed.ep + fixed.dp);
   const auto fit = [&](int64_t bytes) -> int64_t {
     const int64_t room = bytes / (int64_t)sizeof(float) - fixed.total;
@@ -88,21 +103,28 @@ inline cudaError_t bwd_wide_groups(int F, int E, int DK, int O,
   };
   int64_t g = fit(per_sm / kBwdWideMinBlocks - reserved);
   if (g < 1) g = fit(optin);
-  int64_t cap = kThreads / F;
+  int64_t cap = F < kThreads ? kThreads / F : 1;
   if (O < cap) cap = O;
   *groups = (int)(g < cap ? g : cap);
   return cudaSuccess;
 }
 
 // (groups, shared memory bytes) of a K6 block: the narrow build's fixed
-// layout, or the wide one's; groups 0 where the wide one does not fit
+// layout, or the wide one's, each with the threads' columns past 40
+// fields; groups 0 where the plan does not fit a block
 inline cudaError_t bwd_plan(int F, int E, int DK, int O, bool wide,
                             int* groups, size_t* smem) {
+  const bool col = F > kMaxF;
   BwdLayout l;
   if (wide) {
-    const cudaError_t err = bwd_wide_groups(F, E, DK, O, groups);
+    const cudaError_t err =
+        bwd_wide_groups(F, E, DK, O, col ? kThreads : 0, groups);
     if (err != cudaSuccess) return err;
-    l = bwd_wide_layout(F, E, DK, O, *groups);
+    l = bwd_wide_layout(F, E, DK, O, *groups, col ? kThreads : 0);
+  } else if (col) {
+    *groups = F < kThreads ? kThreads / F : 1;
+    l = bwd_col_layout(F, E, DK, *groups);
+    if (sizeof(float) * (size_t)l.total > smem_optin()) *groups = 0;
   } else {
     *groups = kThreads / F;
     l = bwd_layout(F, E, DK, kThreads, kThreads, *groups);
@@ -177,7 +199,10 @@ __device__ __forceinline__ void contract(const float* tile, const float* m,
 
 // WIDE 0 takes E, DK <= kMaxED, with the per-column sums of e and d in
 // registers; WIDE 1 any width, those sums 4 at a time through shared
-// memory (the tile and the thread's dz row)
+// memory (the tile and the thread's dz row). MAXF 16 or 40 holds the
+// thread's column y in registers; MAXF 0, past 40 fields, in the layout's
+// `col` region, solved by entmax_column_strided (every loop over f then
+// has F trips and is not unrolled).
 template <int MAXF, int MODE, int GMODE, int WIDE>
 __global__ void __launch_bounds__(kThreads,
                                   WIDE ? kBwdWideMinBlocks : kBwdMinBlocks)
@@ -190,9 +215,11 @@ arm1h_bwd_kernel(const float* __restrict__ emb,
                  float inv_am1, float c_hi, float ge) {
   constexpr bool kPad = is_bisect(MODE);
   extern __shared__ __align__(16) float smem[];
+  constexpr int kCol = MAXF ? 0 : kThreads;
   const BwdLayout L =
-      WIDE ? bwd_wide_layout(F, E, DK, O, groups)
-           : bwd_layout(F, E, DK, kThreads, kThreads, kThreads / F);
+      WIDE   ? bwd_wide_layout(F, E, DK, O, groups, kCol)
+      : MAXF ? bwd_layout(F, E, DK, kThreads, kThreads, kThreads / F)
+             : bwd_col_layout(F, E, DK, groups);
   float* emb_s = smem;
   float* keys_s = smem + L.keys;
   float* q_s = smem + L.q;
@@ -202,8 +229,9 @@ arm1h_bwd_kernel(const float* __restrict__ emb,
   float* part_b = smem + L.part_b;
   const int tid = threadIdx.x;
   // the contractions: field cf of column group grp (threads past
-  // groups * F idle)
+  // groups * F idle; past 128 fields, MAXF 0, threads take several)
   const int grp = tid / F, cf = tid - grp * F;
+  const int nf = MAXF ? MAXF : F;      // the trip count of a loop over f
   // this block's batch sums, its row of `partial`: dWk [E, DK], dq [O, DK]
   // (unscaled until the end), dvt [F, O]; each element has one owner thread
   const int P = E * DK + O * DK + F * O;
@@ -224,14 +252,25 @@ arm1h_bwd_kernel(const float* __restrict__ emb,
       const int o = c0 + tid;
       const float* vto = vt + o;         // vt[f, o] at vto[f * O]
       float* tcol = tile + tid;          // this thread's column of the tile
-      float y[MAXF];
+      float y[MAXF ? MAXF : 1];
+      float* ycol = smem + L.col + tid;
+      auto Y = [&](int f) -> float& {    // y[f] of the thread's column
+        if constexpr (MAXF > 0) return y[f];
+        else return ycol[f * kThreads];
+      };
       if (tid < kc) {
         // the query row, padded, for the gates and the dkeys contraction
         float* qr = q_s + tid * L.dp;
         for (int d = 0; d < L.dp; ++d) qr[d] = d < DK ? q[o * DK + d] : 0.0f;
-        gate_column<MAXF>(y, keys_s, qr, F, DK, scale, am1,
-                          kPad ? -INFINITY : 0.0f);
-        entmax_column<MAXF, MODE, kPad>(y, F, n_iter, inv_am1, c_hi);
+        if constexpr (MAXF > 0) {
+          gate_column<MAXF>(y, keys_s, qr, F, DK, scale, am1,
+                            kPad ? -INFINITY : 0.0f);
+          entmax_column<MAXF, MODE, kPad>(y, F, n_iter, inv_am1, c_hi);
+        } else {
+          gate_column_strided(ycol, kThreads, keys_s, qr, F, DK, scale, am1);
+          entmax_column_strided<MODE>(ycol, kThreads, F, n_iter, inv_am1,
+                                      c_hi);
+        }
         // z[e] = sum_f w[f] emb[f, e], w = y vt; dz = dout exp(z), kept in
         // registers (narrow) or, 4 e at a time with w from the tile, in
         // the thread's row of dz_s (WIDE)
@@ -240,8 +279,8 @@ arm1h_bwd_kernel(const float* __restrict__ emb,
         float dz[kMaxED] = {};
         if constexpr (!WIDE) {
 #pragma unroll
-          for (int f = 0; f < MAXF; ++f)
-            if (f < F) axpy_row(dz, __fmul_rn(y[f], vto[f * O]),
+          for (int f = 0; f < nf; ++f)
+            if (f < F) axpy_row(dz, __fmul_rn(Y(f), vto[f * O]),
                                 emb_s + f * L.ep, E);
 #pragma unroll
           for (int e = 0; e < kMaxED; ++e)
@@ -253,8 +292,8 @@ arm1h_bwd_kernel(const float* __restrict__ emb,
                   make_float4(dz[c], dz[c + 1], dz[c + 2], dz[c + 3]);
         } else {
 #pragma unroll
-          for (int f = 0; f < MAXF; ++f)
-            if (f < F) tcol[f * kTile] = __fmul_rn(y[f], vto[f * O]);
+          for (int f = 0; f < nf; ++f)
+            if (f < F) tcol[f * kTile] = __fmul_rn(Y(f), vto[f * O]);
           for (int h = 0; h < E; h += 4) {
             float z[4] = {};
             for (int f = 0; f < F; ++f) {
@@ -277,7 +316,7 @@ arm1h_bwd_kernel(const float* __restrict__ emb,
         // waits in the tile for the VJP's dg = t - (sum t / sum g) g
         float sum_t = 0.0f, sum_g = 0.0f;
 #pragma unroll
-        for (int f = 0; f < MAXF; ++f) {
+        for (int f = 0; f < nf; ++f) {
           if (f < F) {
             const float* er = emb_s + f * L.ep;
             float s = 0.0f;      // dw[f]; dz and emb are 0 past E
@@ -295,8 +334,8 @@ arm1h_bwd_kernel(const float* __restrict__ emb,
             } else {
               s = dot_rows(dzr, er, E);
             }
-            acc_dvt[f * O + o] += __fmul_rn(s, y[f]);
-            const float g = gppr<GMODE>(y[f], ge);
+            acc_dvt[f * O + o] += __fmul_rn(s, Y(f));
+            const float g = gppr<GMODE>(Y(f), ge);
             const float t = __fmul_rn(__fmul_rn(s, vto[f * O]), g);
             tcol[f * kTile] = t;
             sum_t += t;
@@ -308,9 +347,9 @@ arm1h_bwd_kernel(const float* __restrict__ emb,
         // with dg from the tile (WIDE)
         float dq[kMaxED] = {};
 #pragma unroll
-        for (int f = 0; f < MAXF; ++f) {
+        for (int f = 0; f < nf; ++f) {
           if (f < F) {
-            const float g = gppr<GMODE>(y[f], ge);
+            const float g = gppr<GMODE>(Y(f), ge);
             const float dg = __fsub_rn(tcol[f * kTile], __fmul_rn(qq, g));
             tcol[f * kTile] = dg;
             if constexpr (!WIDE) axpy_row(dq, dg, keys_s + f * L.dp, DK);
@@ -343,19 +382,31 @@ arm1h_bwd_kernel(const float* __restrict__ emb,
         }
       }
       __syncthreads();                   // dg, q and dz of the chunk ready
-      if (grp < L.groups)                // dkeys / s = dg q
-        contract<WIDE>(tile, q_s, L.dp, DK, kc, L.groups, grp, F, cf, part_a,
-                       c0 == 0);
+      if constexpr (MAXF > 0) {
+        if (grp < L.groups)              // dkeys / s = dg q
+          contract<WIDE>(tile, q_s, L.dp, DK, kc, L.groups, grp, F, cf,
+                         part_a, c0 == 0);
+      } else {
+        for (int i = tid; i < L.groups * F; i += kThreads)
+          contract<WIDE>(tile, q_s, L.dp, DK, kc, L.groups, i / F, F, i % F,
+                         part_a, c0 == 0);
+      }
       __syncthreads();
       if (tid < kc) {
 #pragma unroll
-        for (int f = 0; f < MAXF; ++f)
-          if (f < F) tcol[f * kTile] = __fmul_rn(y[f], vto[f * O]);
+        for (int f = 0; f < nf; ++f)
+          if (f < F) tcol[f * kTile] = __fmul_rn(Y(f), vto[f * O]);
       }
       __syncthreads();                   // w of the chunk ready
-      if (grp < L.groups)                // the first term of de, w dz
-        contract<WIDE>(tile, dz_s, L.ep, E, kc, L.groups, grp, F, cf,
-                       part_b, c0 == 0);
+      if constexpr (MAXF > 0) {
+        if (grp < L.groups)              // the first term of de, w dz
+          contract<WIDE>(tile, dz_s, L.ep, E, kc, L.groups, grp, F, cf,
+                         part_b, c0 == 0);
+      } else {
+        for (int i = tid; i < L.groups * F; i += kThreads)
+          contract<WIDE>(tile, dz_s, L.ep, E, kc, L.groups, i / F, F, i % F,
+                         part_b, c0 == 0);
+      }
       __syncthreads();
     }
 
@@ -469,8 +520,9 @@ BwdKernel pick_bwd(int F, int mode, int gmode, bool wide);
 // times the SM count fill the card) each keep their batch sums in one
 // row of `partial` ([blocks, E*DK + O*DK + F*O]), which a second kernel
 // sums in block order into grads. Returns the cudaError_t of the launches
-// (0 on success). F <= 40, and E and DK narrow enough that K6's shared
-// memory fits a block (bwd_plan; at F = 39 and O >= 128, E = DK <= 128).
+// (0 on success). F, E and DK such that K6's shared memory fits a block
+// (bwd_plan; at F = 39 and O >= 128, E = DK <= 128); the library of the
+// width class and of F's side of 40 fields (pick_bwd).
 extern "C" int armnet_arm1h_bwd(const float* emb, const float* dout,
                                 const float* wk, const float* q,
                                 const float* vt, float* de, float* partial,

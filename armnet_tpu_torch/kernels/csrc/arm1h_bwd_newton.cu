@@ -8,7 +8,8 @@
 namespace armnet {
 
 BwdKernel pick_bwd(int F, int mode, int gmode, bool wide) {
-  if (wide || mode != NEWTON || gmode != G_POW) return nullptr;
+  if (wide || F > kMaxF || mode != NEWTON || gmode != G_POW)
+    return nullptr;
   return F <= 16 ? arm1h_bwd_kernel<16, NEWTON, G_POW, 0>
                  : arm1h_bwd_kernel<kMaxF, NEWTON, G_POW, 0>;
 }

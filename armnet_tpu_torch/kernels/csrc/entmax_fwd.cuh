@@ -20,7 +20,7 @@
 // else, and issues as few dead slots as it can:
 //   - each column's d values stay in registers for the whole solve, in a
 //     compile-time MAXD bucket chosen by the caller in steps of 8
-//     (entmax_cuda.bucket_for): d = 39 runs in 40 and d = 10 in 16, so a
+//     (entmax_cuda.route_for): d = 39 runs in 40 and d = 10 in 16, so a
 //     fully unrolled loop over the column issues at most 7 masked slots;
 //   - neighbouring threads take neighbouring columns, so each of the d
 //     loads and stores is coalesced across the warp;

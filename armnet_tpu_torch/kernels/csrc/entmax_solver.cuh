@@ -202,6 +202,92 @@ __device__ __forceinline__ void entmax_column(float (&v)[MAXD], int d,
     if (PAD || k < d) v[k] = v[k] / sum;
 }
 
+// entmax_column over a column that does not fit a register bucket: its d
+// entries sit at col[k * stride], k < d, in shared memory (laid out
+// [d][threads], so that thread t reads bank t) or in global memory. The
+// same operations in the same order as entmax_column without PAD (whose
+// sub_sat and padding give the same bits), so both solve the plain
+// version's bits; on entry col holds the column times alpha-1, on return
+// the entmax output. Every loop has a runtime trip count and is not
+// unrolled: a thread holds no array.
+template <int MODE>
+__device__ __forceinline__ void entmax_column_strided(float* col,
+                                                      int64_t stride, int d,
+                                                      int n_iter,
+                                                      float inv_am1,
+                                                      float c_hi) {
+  float mx = -INFINITY;
+  for (int k = 0; k < d; ++k) mx = max_nan(mx, col[k * stride]);
+  float tau_lo = mx - 1.0f;     // f(tau_lo) >= 0
+  float tau_hi = mx - c_hi;     // f(tau_hi) <= 0
+
+  auto f_val = [&](float tau) {
+    float s = 0.0f;
+    for (int k = 0; k < d; ++k)
+      s += pow_inv<MODE>(col[k * stride] - tau, inv_am1);
+    return s - 1.0f;
+  };
+
+  float tau;
+  if (MODE == BISECT1 || MODE == BISECT2 || MODE == BISECT3) {
+    const float f_lo0 = f_val(tau_lo);
+    float dm = tau_hi - tau_lo;
+    float t_lo = tau_lo;
+    tau = tau_lo;
+    for (int it = 0; it < n_iter; ++it) {
+      dm = dm * 0.5f;
+      tau = t_lo + dm;
+      if (f_val(tau) * f_lo0 >= 0.0f) t_lo = tau;
+    }
+  } else {
+    if (MODE == FASTPOW) {
+      float a = tau_lo, b = tau_hi;
+      for (int it = 0; it < kFastBisect; ++it) {
+        const float m = 0.5f * (a + b);
+        float s = 0.0f;
+        for (int k = 0; k < d; ++k)
+          s += fast_pow(col[k * stride] - m, inv_am1);
+        const bool pos = s - 1.0f >= 0.0f;
+        a = pos ? m : a;
+        b = pos ? b : m;
+      }
+      tau = 0.5f * (a + b);
+    } else {
+      for (int it = 0; it < kBisect; ++it) {
+        const float m = 0.5f * (tau_lo + tau_hi);
+        const bool pos = f_val(m) >= 0.0f;
+        tau_lo = pos ? m : tau_lo;
+        tau_hi = pos ? tau_hi : m;
+      }
+      tau = 0.5f * (tau_lo + tau_hi);
+    }
+    const int n_polish = MODE == FASTPOW ? kPolish : kNewton;
+    for (int it = 0; it < n_polish; ++it) {
+      float s = 0.0f, s2 = 0.0f;
+      for (int k = 0; k < d; ++k) {
+        const float z = clamp0(col[k * stride] - tau);
+        const float p = pow_inv<MODE>(z, inv_am1);
+        s += p;
+        s2 += z > 0.0f ? p / fmaxf(z, kTiny) : 0.0f;
+      }
+      const float s1 = s - 1.0f;
+      const bool pos = s1 >= 0.0f;
+      tau_lo = pos ? tau : tau_lo;
+      tau_hi = pos ? tau_hi : tau;
+      const float t_n = tau + s1 / __fmul_rn(inv_am1, fmaxf(s2, kTiny));
+      tau = (t_n >= tau_lo && t_n <= tau_hi) ? t_n : 0.5f * (tau_lo + tau_hi);
+    }
+  }
+
+  float sum = 0.0f;
+  for (int k = 0; k < d; ++k) {
+    const float p = pow_inv<MODE>(col[k * stride] - tau, inv_am1);
+    col[k * stride] = p;
+    sum += p;
+  }
+  for (int k = 0; k < d; ++k) col[k * stride] = col[k * stride] / sum;
+}
+
 // g = y^(2-alpha) on the support (y > 0) of the entmax VJP
 // dx = dy*g - (sum(dy*g) / sum(g)) * g; e = 2 - alpha. GMODE: G_ONE
 // (alpha = 2), G_SQRT (alpha = 1.5), G_POW (any other alpha).

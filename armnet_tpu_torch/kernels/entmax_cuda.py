@@ -1,7 +1,8 @@
 """Wrappers of the CUDA alpha-entmax kernels: the forward (csrc/entmax_fwd.cuh,
 built in csrc/entmax.cu and, for the powf modes, entmax_fastpow.cu and
-entmax_newton.cu), port of the Pallas entries `_fwd2d` and `_entmax_mid`,
-and the backward (csrc/entmax.cu), port of `_bwd2d` and `_entmax_mid_bwd`
+entmax_newton.cu, for d <= 64; csrc/entmax_fwd_column.cu past 64), port of
+the Pallas entries `_fwd2d` and `_entmax_mid`, and the backward
+(csrc/entmax_bwd.cu, any d), port of `_bwd2d` and `_entmax_mid_bwd`
 (armnet_tpu/kernels/entmax_pallas.py).
 
 `entmax_kernel` and `entmax_bwd_kernel` launch their kernel on CUDA tensors
@@ -11,7 +12,10 @@ between the two by the tensor's device.
 
 Both kernels read the normalized axis through an (outer, d, inner) view of
 the contiguous input, so any axis is taken without a relayout: the
-fields-major armnet_1h gates [B, F, O] on axis 1 are (B, F, O).
+fields-major armnet_1h gates [B, F, O] on axis 1 are (B, F, O). Neither
+refuses a length of the axis: the forward's route (`route_for`) holds a
+column of d <= 64 in a register bucket, a longer one in shared memory or,
+past 1816 entries, in the output itself.
 """
 
 import ctypes
@@ -26,20 +30,27 @@ from armnet_tpu_torch.kernels.entmax_common import (bisect_steps,
                                                     solver_mode)
 
 __all__ = ["entmax_kernel", "entmax_plain", "entmax_bwd_kernel",
-           "entmax_bwd_plain", "mode_id", "g_mode_id", "bucket_for",
-           "fwd_function", "fwd_args", "FWD_ARGTYPES", "LAUNCHES", "BWD_LAUNCHES", "MAX_D"]
+           "entmax_bwd_plain", "mode_id", "g_mode_id", "route_for",
+           "fwd_function", "fwd_args", "bwd_blocks_per_sm", "FWD_ARGTYPES",
+           "LAUNCHES", "BWD_LAUNCHES", "REGISTER_D", "SMEM_BYTES"]
 
 # kernel launches since the count was last set to 0 (the one place that
 # adds to LAUNCHES is entmax_kernel, to BWD_LAUNCHES entmax_bwd_kernel,
 # each right after a successful launch)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-MAX_D = 64       # largest compile-time register bucket of the kernels
-# argument types of the forward's C entries (fwd_args' order)
+REGISTER_D = 64  # largest compile-time register bucket of the forward
+SMEM_BYTES = 232_448       # shared memory a block can use on Hopper
+# argument types of the forward's C entries (fwd_args' order): a register
+# bucket's, and the column entry's (threads and shared where the bucket is)
 FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
                 ctypes.c_void_p]
+COLUMN_ARGTYPES = FWD_ARGTYPES[:6] + [ctypes.c_int] + FWD_ARGTYPES[6:]
+BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 _MODE = {"fastpow": 3, "newton": 4}
 _BISECT_MODE = {1.0: 0, 2.0: 1, 3.0: 2}
 _G_MODE = {0.0: 0, 0.5: 1}          # g = 1, sqrt(y); 2 = powf
@@ -75,29 +86,43 @@ def g_mode_id(alpha):
     return _G_MODE.get(2.0 - alpha, 2)
 
 
-def bucket_for(d):
-    """The forward kernel's register bucket for a normalized axis of d
-    entries: the least multiple of 8 that holds d (d = 39 runs in 40,
-    d = 10 in 16). Raises past MAX_D."""
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"the entmax kernels take 1 to {MAX_D} entries on "
-                         f"the normalized axis, got {d}")
-    return -(-d // 8) * 8
+def route_for(d):
+    """Where the forward kernel holds a column of d entries (d >= 1):
+    ("register", bucket) up to REGISTER_D, the bucket the least multiple of
+    8 that holds d (d = 39 runs in 40, d = 10 in 16); past it ("shared",
+    threads), blocks of 128, 64 or 32 columns, the most whose columns fit
+    a block's shared memory; ("global", 128) where not even 32 do."""
+    if d < 1:
+        raise ValueError(f"entmax needs at least one entry on the "
+                         f"normalized axis, got {d}")
+    if d <= REGISTER_D:
+        return "register", -(-d // 8) * 8
+    for threads in (128, 64, 32):
+        if 4 * d * threads <= SMEM_BYTES:
+            return "shared", threads
+    return "global", 128
 
 
-def fwd_function(alpha):
-    """The forward's ctypes entry for a static alpha (FWD_ARGTYPES), built
-    at first use."""
+def fwd_function(alpha, route):
+    """The forward's ctypes entry for a static alpha on a route (route_for),
+    built at first use: a register bucket's entry of alpha's solver mode
+    (FWD_ARGTYPES), or the column entry of every mode (COLUMN_ARGTYPES)."""
+    if route[0] != "register":
+        return build.function("entmax_fwd_column", "armnet_entmax_fwd_column",
+                              COLUMN_ARGTYPES)
     return build.function(*_FWD_ENTRY.get(
         mode_id(alpha), ("entmax", "armnet_entmax_fwd")), FWD_ARGTYPES)
 
 
-def fwd_args(x, y, alpha, outer, d, inner, bucket, n_iter=50):
-    """The forward entry's arguments (FWD_ARGTYPES) for y = entmax of the
-    (outer, d, inner) view of x in register bucket `bucket`, on the current
-    stream."""
+def fwd_args(x, y, alpha, outer, d, inner, route, n_iter=50):
+    """The forward entry's arguments for y = entmax of the (outer, d,
+    inner) view of x on `route` (route_for; a register route's argument is
+    its bucket, FWD_ARGTYPES; the others' their threads and where the
+    column lives, COLUMN_ARGTYPES), on the current stream."""
     am1 = alpha - 1.0
-    return (x.data_ptr(), y.data_ptr(), outer, d, inner, bucket,
+    where, n = route
+    place = (n,) if where == "register" else (n, int(where == "shared"))
+    return (x.data_ptr(), y.data_ptr(), outer, d, inner, *place,
             mode_id(alpha), bisect_steps(n_iter), am1, 1.0 / am1,
             (1.0 / d) ** am1, build.raw_stream(x.device))
 
@@ -117,11 +142,8 @@ def _view(x, alpha, axis, who, *more):
     if not alpha > 1.0:
         raise ValueError(f"{who} needs alpha > 1 (softmax at 1)")
     axis = axis % x.ndim
-    d = x.shape[axis]
-    if d > MAX_D:
-        raise ValueError(f"{who} takes at most {MAX_D} entries on the "
-                         f"normalized axis, got {d}")
-    return math.prod(x.shape[:axis]), d, math.prod(x.shape[axis + 1:])
+    return (math.prod(x.shape[:axis]), x.shape[axis],
+            math.prod(x.shape[axis + 1:]))
 
 
 def entmax_kernel(x, alpha, axis=-1, n_iter=50):
@@ -133,10 +155,10 @@ def entmax_kernel(x, alpha, axis=-1, n_iter=50):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    fn = fwd_function(alpha)
+    route = route_for(d)
+    fn = fwd_function(alpha, route)
     with torch.cuda.device(x.device):
-        err = fn(*fwd_args(x, y, alpha, outer, d, inner, bucket_for(d),
-                           n_iter))
+        err = fn(*fwd_args(x, y, alpha, outer, d, inner, route, n_iter))
     if err != 0:
         raise RuntimeError(f"entmax kernel launch failed: cudaError {err}")
     LAUNCHES += 1
@@ -153,11 +175,7 @@ def entmax_bwd_kernel(y, dy, alpha, axis=-1):
     dx = torch.empty_like(y)
     if y.numel() == 0:
         return dx
-    fn = build.function(
-        "entmax", "armnet_entmax_bwd",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_float, ctypes.c_void_p])
+    fn = build.function("entmax_bwd", "armnet_entmax_bwd", BWD_ARGTYPES)
     with torch.cuda.device(y.device):
         err = fn(y.data_ptr(), dy.data_ptr(), dx.data_ptr(), outer, d, inner,
                  g_mode_id(alpha), 2.0 - alpha, build.raw_stream(y.device))
@@ -167,3 +185,18 @@ def entmax_bwd_kernel(y, dy, alpha, axis=-1):
     BWD_LAUNCHES += 1
     return dx
 
+
+
+def bwd_blocks_per_sm(d, alpha):
+    """Blocks of the backward kernel that one SM of the current device
+    holds at d entries and alpha (its registers and shared memory), as the
+    occupancy calculator gives it."""
+    fn = build.function("entmax_bwd", "armnet_entmax_bwd_blocks_per_sm",
+                        [ctypes.c_int, ctypes.c_int,
+                         ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    err = fn(d, g_mode_id(float(alpha)), ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"armnet_entmax_bwd_blocks_per_sm failed: "
+                           f"cudaError {err}")
+    return n.value

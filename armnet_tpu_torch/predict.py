@@ -22,7 +22,7 @@ import time
 
 import torch
 
-from armnet_tpu_torch import resolve_device
+from armnet_tpu_torch import resolve_device, set_matmul_precision
 from armnet_tpu_torch.data.libsvm import BatchIterator, LibsvmDataset
 from armnet_tpu_torch.models import create_model
 from armnet_tpu_torch.models.config import ModelConfig
@@ -126,9 +126,7 @@ def main(argv=None):
     cfg = _restore_model_config(cfg, meta, p, argv)
     check_supported(cfg)
     device = resolve_device(cfg.device)
-    # full-f32 GEMMs, as the parity tests assume
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_matmul_precision(cfg.matmul_precision)
 
     inp = _resolve_input(cfg, inp)
     loader = BatchIterator(LibsvmDataset(inp, cfg.nfield), cfg.batch_size)

@@ -15,16 +15,18 @@ With --repeat > 1 the mean and std over seeds go to stdout and to
 raises when CUDA is absent; pass `--device cpu` to train on the CPU.
 `--kernels pallas-fused` trains through the fused ARM-1h kernels (the
 trainer builds the model with the config's choice, and the checkpoints'
-metadata keeps it for predict).
+metadata keeps it for predict). `--matmul_precision high` lets float32
+GEMMs use TF32 (default and highest keep full f32), and `--debug_nans`
+stops training with FloatingPointError at the first step whose loss or
+gradients hold a NaN or an infinity.
 """
 
 import glob
 import os
 
 import numpy as np
-import torch
 
-from armnet_tpu_torch import resolve_device
+from armnet_tpu_torch import resolve_device, set_matmul_precision
 from armnet_tpu_torch.data.libsvm import make_dataloaders
 from armnet_tpu_torch.train.checkpoint import restore_checkpoint
 from armnet_tpu_torch.train.loop import Trainer
@@ -40,9 +42,7 @@ def main(argv=None):
     cfg = ExperimentConfig(**vars(build_arg_parser().parse_args(argv)))
     check_supported(cfg)
     resolve_device(cfg.device)        # raises before any work without CUDA
-    # full-f32 GEMMs, as the parity tests assume
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_matmul_precision(cfg.matmul_precision)
 
     base = os.path.join(cfg.data_dir, cfg.dataset)
     if glob.glob(os.path.join(base, "*.arff")):

@@ -109,7 +109,11 @@ class Trainer:
         _, _, self.metric_name = task_fns(self.task)
         # dropout masks come from a generator seeded from the run's seed
         generator = torch.Generator(self.device).manual_seed(seed + 7)
-        self.train_step = make_train_step(self.task, config.clip, generator)
+        self.train_step = make_train_step(self.task, config.clip, generator,
+                                          config.debug_nans)
+        if config.debug_nans:
+            logger.info("debug_nans enabled: a non-finite loss or gradient "
+                        "stops training")
         self.eval_step = make_eval_step(self.task)
 
     def _save(self, epoch, valid_auc, test_auc):

@@ -13,6 +13,10 @@ and SparseAdam would not.
 The quality metric (ROC-AUC or accuracy) is taken on the logits from before
 the update. Meters are tensors on the model's device, so a step never waits
 for the device; the loop reads them only at report and epoch boundaries.
+With debug_nans (--debug_nans) a step also waits for one flag from the
+device: a NaN or an infinity in the loss or a gradient raises
+FloatingPointError before the update, as jax_debug_nans stops the JAX
+trainer at the first NaN.
 """
 
 import torch
@@ -23,7 +27,7 @@ from armnet_tpu_torch.train.metrics import (masked_accuracy, masked_bce,
 
 __all__ = ["TrainState", "create_train_state", "make_optimizer",
            "make_train_step", "make_eval_step", "init_meters", "task_fns",
-           "forward_loss", "clamp_grads"]
+           "forward_loss", "clamp_grads", "check_finite"]
 
 
 def task_fns(task):
@@ -87,16 +91,36 @@ def clamp_grads(params, clip):
             p.grad.clamp_(-clip, clip)
 
 
-def make_train_step(task="binary", clip=1.0, generator=None):
+def check_finite(loss, model, step):
+    """Raise FloatingPointError, naming the step and what holds them, where
+    the loss or a gradient of the model holds a NaN or an infinity. One
+    sync with the device."""
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None}
+    flags = torch.stack([torch.isfinite(loss).all()]
+                        + [torch.isfinite(g).all() for g in grads.values()])
+    if bool(flags.all()):
+        return
+    bad = [n for n, ok in zip(["loss", *grads], flags.tolist()) if not ok]
+    raise FloatingPointError(
+        f"NaN or infinity at train step {step} (0-based) in: "
+        f"{', '.join(bad)}")
+
+
+def make_train_step(task="binary", clip=1.0, generator=None,
+                    debug_nans=False):
     """train_step(state, meters, batch) -> meters: forward, loss, backward,
     clamp, Adam; the metric on the pre-update logits. `generator` draws the
-    dropout masks."""
+    dropout masks; with debug_nans the step raises before the update where
+    the loss or a gradient is not finite (check_finite)."""
     loss_fn, metric_fn, _ = task_fns(task)
 
     def train_step(state, meters, batch):
         state.optimizer.zero_grad(set_to_none=True)
         loss, logits = forward_loss(state.model, batch, loss_fn, generator)
         loss.backward()
+        if debug_nans:
+            check_finite(loss, state.model, state.step)
         clamp_grads(state.model.parameters(), clip)
         state.optimizer.step()
         state.step += 1

@@ -10,8 +10,12 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               instantiations the main paths launch apart
   3. kernel   each CUDA kernel against its plain PyTorch version on the
               card: the entmax forward and backward at both Criteo and
-              Frappe shapes, a 2-D last-axis and a ragged shape and a NaN
-              column, at four alphas (the forward timed at both shapes);
+              Frappe shapes, a 2-D last-axis and a ragged shape, the
+              Diabetes130 step (43 fields) and columns of 65, 100 and 300
+              (the forward's shared-memory route) and a NaN column, at
+              four alphas (timed at the Criteo, Frappe and Diabetes130
+              steps and at d 100; the backward's registers, spills and
+              blocks per SM);
               the table gradient on a Criteo batch's int32 and int64 ids,
               Zipf-skewed ids, all ids equal, wrapped and dropped ids and
               a ragged table, twice (bitwise equal), its radix sort
@@ -23,12 +27,14 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
      kernel_arm  the fused ARM-1h forward (K5) and recompute backward (K6)
               against their plain versions at the Criteo and Frappe steps,
               a ragged batch, one row, O 200 and 96, F 16 and 17, fewer
-              rows than K6's grid, and wide embeddings (Frappe at nemb
-              100 with h 10, Criteo's fields at nemb 40), at four
+              rows than K6's grid, wide embeddings (Frappe at nemb 100
+              with h 10, Criteo's fields at nemb 40) and past the 40-field
+              bucket (F 41, 43, 64, 128, the wide build at 43), at four
               alphas, K6 twice (bitwise equal); kernel, plain and
-              composed-path times beside the bound, blocks per SM, K6's
-              grid and its split into its main kernel and the ordered
-              sum of the blocks' partials
+              composed-path times at the Criteo and Diabetes130 steps
+              beside the bound, blocks per SM, K6's grid and its split
+              into its main kernel and the ordered sum of the blocks'
+              partials
   4. serve    armnet_tpu_torch.predict at the Criteo width of the
               cr_armnet1h preset (nfeat 2.1M, 39 fields, E=10, h=128, MLP
               2x500, alpha 2.0), ensemble off and on, on a seeded synthetic
@@ -53,6 +59,10 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               checkpoint, and warm train rows/s over whole epochs
   8. frappe_train  3 epochs of the frappe_armnet1h recipe on data/frappe/:
               valid and test AUC per epoch beside the JAX package's curve
+     diabetes_train  3 epochs of the db_armnet1h recipe (43 fields, alpha
+              1.7) on data/uci_diabetes/ under --kernels auto and
+              pallas-fused: launches per step, falling finite losses, one
+              step on the card against the CPU, valid and test AUC
   9. profile_train  torch.profiler over one warm Criteo-width train step,
               under auto and under pallas-fused
 Then one JSON line {"kernels": [...]} and, last, the device JSON line.
@@ -77,8 +87,8 @@ from armnet_tpu_torch.data.libsvm import (BatchIterator, LibsvmDataset,
                                           make_dataloaders)
 from armnet_tpu_torch.kernels import (arm_cuda, build, entmax_cuda,
                                       scatter_cuda)
-from armnet_tpu_torch.kernels.bench import (CRITEO_ARM, FRAPPE_ARM,
-                                            FRAPPE_NEMB100_ARM,
+from armnet_tpu_torch.kernels.bench import (CRITEO_ARM, DIABETES_ARM,
+                                            FRAPPE_ARM, FRAPPE_NEMB100_ARM,
                                             arm_bwd_split, arm_inputs,
                                             criteo_ids, host_incl_ms,
                                             ptxas_report, table_grad_cases,
@@ -92,12 +102,17 @@ from armnet_tpu_torch.train import cli
 from armnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from armnet_tpu_torch.train.loop import Trainer, run_epoch
 from armnet_tpu_torch.train.step import clamp_grads, forward_loss
-from armnet_tpu_torch.utils.config import ExperimentConfig
+from armnet_tpu_torch.utils.config import ExperimentConfig, build_arg_parser
 from armnet_tpu_torch.utils.logging import get_logger, remove_logger
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CRITEO_SHAPE = (4096, 39, 128)
 FRAPPE_SHAPE = (4096, 10, 128)
+# the db_armnet1h step (batch 1024, 43 fields), and columns past the entmax
+# forward's register buckets (its shared-memory route), cut in batch so
+# that the plain versions stay quick
+DIABETES_SHAPE = (1024, 43, 128)
+LONG_SHAPES = ((256, 65, 128), (128, 100, 128), (32, 300, 128))
 CRITEO_NFEAT = 2_100_000
 ALPHAS = (1.5, 1.7, 2.0, 2.5)
 SEED = 2025
@@ -106,6 +121,12 @@ CPU_ROWS = 1024     # rows of a scoring batch that the CPU scores to compare
 PLAIN_REPS = 5      # timings of a plain version (10-40 ms a call on the card)
 # the JAX package's 3-epoch Frappe curve of this recipe (valid AUC)
 FRAPPE_JAX_VALID = (0.8211, 0.8841, 0.9041)
+# the db_armnet1h preset (armnet_tpu/utils/presets.py), run on the bundled
+# data/uci_diabetes/ split (43 fields a row)
+DIABETES_FLAGS = ["--model", "armnet_1h", "--mlp_nlayer", "1", "--h", "128",
+                  "--alpha", "1.7", "--lr", "0.003", "--batch_size", "1024",
+                  "--nfield", "43", "--nfeat", "369", "--dataset",
+                  "uci_diabetes"]
 
 
 # wall seconds by phase and by part of a phase, added up over the run
@@ -148,13 +169,19 @@ def phase_device():
 
 def main_path_instantiations():
     """The kernel instantiations that the smoke's main paths launch (alpha
-    2, int32 ids), as ptxas_report names them."""
-    fwd, bwd = entmax_cuda.mode_id(2.0), entmax_cuda.g_mode_id(2.0)
-    names = {f"entmax_fwd_kernel<{entmax_cuda.bucket_for(d)},{fwd}>"
-             for d in (39, 10)}
-    names |= {f"entmax_bwd_kernel<{b},{bwd}>" for b in (64, 16)}
-    names |= {f"arm1h_fwd_kernel<40,{fwd}>", f"arm1h_bwd_kernel<40,{fwd},"
-              f"{bwd},0>", "sum_rows_kernel"}
+    2 at Criteo and Frappe, 1.7 at 43 fields for Diabetes130; int32 ids),
+    as ptxas_report names them."""
+    names = {"sum_rows_kernel"}
+    # (alpha, the entmax's d, K5's and K6's field bucket: 0 is the column
+    # in shared memory)
+    for alpha, fields, bucket in ((2.0, (39, 10), 40), (1.7, (43,), 0)):
+        fwd, bwd = entmax_cuda.mode_id(alpha), entmax_cuda.g_mode_id(alpha)
+        names |= {f"entmax_fwd_kernel<{entmax_cuda.route_for(d)[1]},{fwd}>"
+                  for d in fields}
+        names.add(f"entmax_bwd_staged_kernel<{bwd}>")
+        names.add(f"arm1h_fwd_kernel<40,{fwd}>" if bucket
+                  else f"arm1h_fwd_col_kernel<{fwd}>")
+        names.add(f"arm1h_bwd_kernel<{bucket},{fwd},{bwd},0>")
     names |= {f"radix_{k}_kernel<int>" for k in ("count", "scatter")}
     return names | {"radix_scan_kernel", "zero_kernel", "segment_kernel",
                     "long_segment_kernel"}
@@ -176,9 +203,11 @@ def phase_build():
 def phase_kernel():
     g = torch.Generator(device="cuda").manual_seed(SEED)
     # the serving shapes of the Criteo and Frappe phases (register buckets
-    # 40 and 16), a 2-D last-axis case and a ragged one (bucket 8)
+    # 40 and 16), a 2-D last-axis case and a ragged one (bucket 8), the
+    # Diabetes130 step (bucket 48) and columns past the buckets (shared)
     cases = [(CRITEO_SHAPE, 1), (FRAPPE_SHAPE, 1), ((8192, 39), -1),
-             ((7, 5, 13), 1)]
+             ((7, 5, 13), 1), (DIABETES_SHAPE, 1),
+             *((shape, 1) for shape in LONG_SHAPES)]
     stats = {}
     for alpha in ALPHAS:
         tol = 5e-6 if alpha <= 2.0 else 1e-5
@@ -213,18 +242,31 @@ def phase_kernel():
         xf = torch.randn(FRAPPE_SHAPE, generator=g, device="cuda") * 3.0
         frappe_ms = time_ms(lambda: entmax_cuda.entmax_kernel(xf, alpha, 1))
         bound, by = entmax_bound_ms(CRITEO_SHAPE, alpha)
+        more = {}
+        for name, shape in (("diabetes", DIABETES_SHAPE),
+                            ("d100", LONG_SHAPES[1])):
+            xs = torch.randn(shape, generator=g, device="cuda") * 3.0
+            more[name] = {
+                "shape": list(shape),
+                "route": entmax_cuda.route_for(shape[1]),
+                "ms": time_ms(lambda: entmax_cuda.entmax_kernel(xs, alpha,
+                                                                1)),
+                "plain_ms": time_ms(lambda: entmax_cuda.entmax_plain(
+                    xs, alpha, 1), PLAIN_REPS, 1),
+                "bound_ms": entmax_bound_ms(shape, alpha)[0]}
         stats[alpha] = {"ms": ms, "host_incl_ms": incl_ms,
                         "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": by, "max_abs_err": max(errs),
-                        "frappe_ms": frappe_ms}
+                        "frappe_ms": frappe_ms, **more}
         log("kernel", name="entmax_fwd", alpha=alpha,
             shape=list(CRITEO_SHAPE), axis=1,
-            bucket=entmax_cuda.bucket_for(CRITEO_SHAPE[1]), ms=ms,
-            host_incl_ms=incl_ms, plain_ms=plain_ms, bound_us=bound * 1e3, bound_by=by,
-            frappe_shape=list(FRAPPE_SHAPE),
-            frappe_bucket=entmax_cuda.bucket_for(FRAPPE_SHAPE[1]),
+            route=entmax_cuda.route_for(CRITEO_SHAPE[1]), ms=ms,
+            host_incl_ms=incl_ms, plain_ms=plain_ms, bound_us=bound * 1e3,
+            bound_by=by, frappe_shape=list(FRAPPE_SHAPE),
+            frappe_route=entmax_cuda.route_for(FRAPPE_SHAPE[1]),
             frappe_ms=frappe_ms,
             frappe_bound_us=entmax_bound_ms(FRAPPE_SHAPE, alpha)[0] * 1e3,
+            **more, checked_shapes=[list(c[0]) for c in cases],
             max_abs_err=max(errs), tol=tol,
             library="none: no single PyTorch call computes entmax")
     return stats
@@ -232,10 +274,16 @@ def phase_kernel():
 
 def phase_kernel_bwd():
     """The entmax backward kernel against its plain version, y from the
-    forward kernel, at the forward phase's shapes and alphas."""
+    forward kernel, at the forward phase's shapes and alphas (d 5, 10, 39,
+    43, 65, 100 and 300), its device time at the Criteo, Frappe and
+    Diabetes130 steps and at d 100 beside the bound and the plain version,
+    with its registers, spills and blocks per SM."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     cases = [(CRITEO_SHAPE, 1), (FRAPPE_SHAPE, 1), ((8192, 39), -1),
-             ((7, 5, 13), 1)]
+             ((7, 5, 13), 1), (DIABETES_SHAPE, 1),
+             *((shape, 1) for shape in LONG_SHAPES)]
+    ptxas = {k: v for k, v in ptxas_report(build.build_log(
+        "entmax_bwd")).items() if k.startswith("entmax_bwd")}
     tol = 2e-5
     stats = {}
     for alpha in ALPHAS:
@@ -264,28 +312,35 @@ def phase_kernel_bwd():
         check(bool(dk[3, :, 4].isnan().all()) and int(dk.isnan().sum()) == 5
               and torch.allclose(dk, dp, rtol=0, atol=tol, equal_nan=True),
               f"entmax_bwd kernel vs plain on a NaN column at alpha={alpha}")
-        y = entmax_cuda.entmax_kernel(
-            torch.randn(CRITEO_SHAPE, generator=g, device="cuda") * 3.0,
-            alpha, 1)
-        dy = torch.randn(CRITEO_SHAPE, generator=g, device="cuda")
-        ms = time_ms(lambda: entmax_cuda.entmax_bwd_kernel(y, dy, alpha, 1))
-        incl_ms = host_incl_ms(
-            lambda: entmax_cuda.entmax_bwd_kernel(y, dy, alpha, 1))
-        plain_ms = time_ms(lambda: entmax_cuda.entmax_bwd_plain(y, dy, alpha,
-                                                                1),
-                           PLAIN_REPS, 1)
-        numel = math.prod(CRITEO_SHAPE)
-        bound_ms, by = bound(3 * 4 * numel,
-                             entmax_bwd_ops_per_element(alpha) * numel)
-        stats[alpha] = {"ms": ms, "host_incl_ms": incl_ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": by, "max_abs_err": max(errs)}
-        log("kernel", name="entmax_bwd", alpha=alpha,
-            shape=list(CRITEO_SHAPE), axis=1, ms=ms, host_incl_ms=incl_ms,
-            plain_ms=plain_ms,
-            bound_us=bound_ms * 1e3, bound_by=by, max_abs_err=max(errs),
-            tol=tol, library="none: no single PyTorch call computes the "
-                             "entmax VJP")
+        timed_at = {}
+        for name, shape in (("criteo", CRITEO_SHAPE), ("frappe", FRAPPE_SHAPE),
+                            ("diabetes", DIABETES_SHAPE),
+                            ("d100", LONG_SHAPES[1])):
+            y = entmax_cuda.entmax_kernel(
+                torch.randn(shape, generator=g, device="cuda") * 3.0,
+                alpha, 1)
+            dy = torch.randn(shape, generator=g, device="cuda")
+            numel = math.prod(shape)
+            bound_ms, by = bound(3 * 4 * numel,
+                                 entmax_bwd_ops_per_element(alpha) * numel)
+            timed_at[name] = {
+                "shape": list(shape),
+                "ms": time_ms(lambda: entmax_cuda.entmax_bwd_kernel(
+                    y, dy, alpha, 1)),
+                "host_incl_ms": host_incl_ms(
+                    lambda: entmax_cuda.entmax_bwd_kernel(y, dy, alpha, 1)),
+                "plain_ms": time_ms(lambda: entmax_cuda.entmax_bwd_plain(
+                    y, dy, alpha, 1), PLAIN_REPS, 1),
+                "bound_ms": bound_ms, "bound_by": by,
+                "blocks_per_sm": entmax_cuda.bwd_blocks_per_sm(shape[1],
+                                                               alpha)}
+        crit = timed_at.pop("criteo")
+        stats[alpha] = {**crit, "max_abs_err": max(errs), **timed_at}
+        log("kernel", name="entmax_bwd", alpha=alpha, axis=1, **crit,
+            **timed_at, ptxas=ptxas,
+            checked_shapes=[list(c[0]) for c in cases],
+            max_abs_err=max(errs), tol=tol,
+            library="none: no single PyTorch call computes the entmax VJP")
     return stats
 
 
@@ -413,21 +468,24 @@ def phase_kernel_arm():
     threads (O 200), a part of a block (O 96), F at the register bucket's
     edge (16, 17), fewer rows than K6's grid, and embeddings wider than
     K6's 16-wide register sums (Frappe at nemb 100 with h 10, Criteo's
-    fields at nemb 40), at four alphas: the forward within rtol/atol
-    2e-5, the four gradients within rtol 5e-4, atol 5e-5
-    (the JAX package's tolerances for its fused kernel,
-    tests/test_arm_pallas.py), and K6 equal to itself bit for bit. Times
-    at the Criteo step: kernel, plain version and the composed path of
-    --kernels auto (GEMMs, the entmax kernel, einsum and exp, and its
-    autograd backward), which is the yardstick: no single PyTorch call
-    computes this function."""
+    fields at nemb 40), and past the 40-field register bucket (the columns
+    in shared memory): F 41, 64 and 128 at the cr_armnet1h widths, the
+    Diabetes130 step (B 1024, F 43) and the wide build at 43 fields, at
+    four alphas: the forward within rtol/atol 2e-5, the four gradients
+    within rtol 5e-4, atol 5e-5 (the JAX package's tolerances for its fused
+    kernel, tests/test_arm_pallas.py), and K6 equal to itself bit for bit.
+    Times at the Criteo and Diabetes130 steps: kernel, plain version and
+    the composed path of --kernels auto (GEMMs, the entmax kernel, einsum
+    and exp, and its autograd backward), which is the yardstick: no single
+    PyTorch call computes this function."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     cases = [CRITEO_ARM, FRAPPE_ARM, (4095, 39, 10, 10, 128),
              (1, 39, 10, 10, 128), (512, 39, 10, 10, 200),
              (512, 39, 10, 10, 96), (512, 16, 10, 10, 128),
              (512, 17, 10, 10, 128), (100, 39, 10, 10, 128),
-             FRAPPE_NEMB100_ARM, (512, 39, 40, 40, 128)]
-    rows, f, e, dk, o = CRITEO_ARM
+             FRAPPE_NEMB100_ARM, (512, 39, 40, 40, 128),
+             (256, 41, 10, 10, 128), DIABETES_ARM, (256, 64, 10, 10, 128),
+             (128, 128, 10, 10, 128), (64, 43, 33, 20, 130)]
     stats = {}
     for alpha in ALPHAS:
         ferrs, berrs = [], []
@@ -454,52 +512,68 @@ def phase_kernel_arm():
                 check(torch.equal(a, b), f"arm1h_bwd kernel {name} not "
                                          f"bitwise deterministic at "
                                          f"alpha={alpha} {shape}")
-        emb, wk, q, vt, dout = arm_inputs(g, CRITEO_ARM)
-        leaves = [t.clone().requires_grad_() for t in (emb, wk, q, vt)]
-        composed = arm1h_interaction(leaves[0], leaves[1], leaves[2],
-                                     leaves[3].t(), alpha)
-        times = {
-            "fwd": (lambda: arm_cuda.arm1h_fwd_kernel(emb, wk, q, vt, alpha),
-                    lambda: arm_cuda.arm1h_fwd_plain(emb, wk, q, vt, alpha),
-                    lambda: arm1h_interaction(emb, wk, q, vt.t(), alpha)),
-            "bwd": (lambda: arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout,
-                                                      alpha),
-                    lambda: arm_cuda.arm1h_bwd_plain(emb, wk, q, vt, dout,
-                                                     alpha),
-                    lambda: torch.autograd.grad(composed, leaves, dout,
-                                                retain_graph=True))}
-        bounds = fused_arm_bounds(CRITEO_ARM, alpha)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        grid = arm_cuda.bwd_grid(rows, f, e, dk, o, alpha, emb.device)
-        launch = {"fwd": {"blocks_per_sm": arm_cuda.fwd_blocks_per_sm(
-                      f, e, dk, CRITEO_ARM[4], alpha)},
-                  "bwd": {"blocks_per_sm": arm_cuda.bwd_blocks_per_sm(
-                      f, e, dk, o, alpha), "grid": grid,
-                      "grid_blocks_per_sm": grid / sms,
-                      **arm_bwd_split(emb, wk, q, vt, dout, alpha)}}
-        for kind, errs in (("fwd", ferrs), ("bwd", berrs)):
-            kernel, plain, comp = times[kind]
-            ms, plain_ms, composed_ms = (time_ms(kernel),
-                                         time_ms(plain, PLAIN_REPS, 1),
-                                         time_ms(comp))
-            incl_ms = host_incl_ms(kernel)
-            bound_ms, by, nbytes, nops = bounds[kind]
-            stats[(kind, alpha)] = {
-                "ms": ms, "host_incl_ms": incl_ms, "plain_ms": plain_ms,
-                "composed_ms": composed_ms, "bound_ms": bound_ms,
-                "bound_by": by, "max_abs_err": max(errs), **launch[kind]}
-            log("kernel_arm", name=f"arm1h_{kind}", alpha=alpha,
-                shape=dict(zip("BFEDO", CRITEO_ARM)), ms=ms,
-                host_incl_ms=incl_ms, plain_ms=plain_ms, composed_ms=composed_ms,
-                bound_us=bound_ms * 1e3, bound_by=by, bytes=nbytes,
-                f32_instruction_slots=nops, max_abs_err=max(errs),
-                **launch[kind],
-                tol="rtol/atol 2e-5" if kind == "fwd" else
-                    "rtol 5e-4, atol 5e-5; bitwise equal to itself",
-                library="none: no single PyTorch call computes the fused "
-                        "ARM-1h interaction; composed_ms is the port's "
-                        "--kernels auto path on the card")
-        del composed, leaves
+        for step, shape in (("criteo", CRITEO_ARM),
+                            ("diabetes", DIABETES_ARM)):
+            stats.update(arm_step_times(g, step, shape, alpha, ferrs, berrs))
+    return stats
+
+
+def arm_step_times(g, step, shape, alpha, ferrs, berrs):
+    """{(kind, alpha) or (kind, alpha, step): record} of K5 and K6 at one
+    step's shape: kernel, host-inclusive, plain and composed times, the
+    bound, blocks per SM and K6's grid, and at the Criteo step K6's split
+    by torch.profiler; logged as kernel_arm lines. The Criteo step's
+    records take the plain keys."""
+    rows, f, e, dk, o = shape
+    stats = {}
+    emb, wk, q, vt, dout = arm_inputs(g, shape)
+    leaves = [t.clone().requires_grad_() for t in (emb, wk, q, vt)]
+    composed = arm1h_interaction(leaves[0], leaves[1], leaves[2],
+                                 leaves[3].t(), alpha)
+    times = {
+        "fwd": (lambda: arm_cuda.arm1h_fwd_kernel(emb, wk, q, vt, alpha),
+                lambda: arm_cuda.arm1h_fwd_plain(emb, wk, q, vt, alpha),
+                lambda: arm1h_interaction(emb, wk, q, vt.t(), alpha)),
+        "bwd": (lambda: arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout,
+                                                  alpha),
+                lambda: arm_cuda.arm1h_bwd_plain(emb, wk, q, vt, dout,
+                                                 alpha),
+                lambda: torch.autograd.grad(composed, leaves, dout,
+                                            retain_graph=True))}
+    bounds = fused_arm_bounds(shape, alpha)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = arm_cuda.bwd_grid(rows, f, e, dk, o, alpha, emb.device)
+    launch = {"fwd": {"blocks_per_sm": arm_cuda.fwd_blocks_per_sm(
+                  f, e, dk, o, alpha)},
+              "bwd": {"blocks_per_sm": arm_cuda.bwd_blocks_per_sm(
+                  f, e, dk, o, alpha), "grid": grid,
+                  "grid_blocks_per_sm": grid / sms}}
+    if step == "criteo":
+        launch["bwd"].update(arm_bwd_split(emb, wk, q, vt, dout, alpha))
+    for kind, errs in (("fwd", ferrs), ("bwd", berrs)):
+        kernel, plain, comp = times[kind]
+        ms, plain_ms, composed_ms = (time_ms(kernel),
+                                     time_ms(plain, PLAIN_REPS, 1),
+                                     time_ms(comp))
+        incl_ms = host_incl_ms(kernel)
+        bound_ms, by, nbytes, nops = bounds[kind]
+        key = (kind, alpha) if step == "criteo" else (kind, alpha, step)
+        stats[key] = {
+            "ms": ms, "host_incl_ms": incl_ms, "plain_ms": plain_ms,
+            "composed_ms": composed_ms, "bound_ms": bound_ms,
+            "bound_by": by, "max_abs_err": max(errs), **launch[kind]}
+        log("kernel_arm", name=f"arm1h_{kind}", alpha=alpha, step=step,
+            shape=dict(zip("BFEDO", shape)), ms=ms,
+            host_incl_ms=incl_ms, plain_ms=plain_ms, composed_ms=composed_ms,
+            bound_us=bound_ms * 1e3, bound_by=by, bytes=nbytes,
+            f32_instruction_slots=nops, max_abs_err=max(errs),
+            **launch[kind],
+            tol="rtol/atol 2e-5" if kind == "fwd" else
+                "rtol 5e-4, atol 5e-5; bitwise equal to itself",
+            library="none: no single PyTorch call computes the fused "
+                    "ARM-1h interaction; composed_ms is the port's "
+                    "--kernels auto path on the card")
+    del composed, leaves
     return stats
 
 
@@ -796,7 +870,7 @@ def within(delta, ref, rtol, atol=1e-6):
                                    + rtol * float(ref.norm()))
 
 
-def gpu_vs_cpu_step(ckpt, ensemble, batch, kernels="auto", enforce=True):
+def gpu_vs_cpu_step(ckpt, cfg, batch, enforce=True):
     """One train step (masked BN forward, BCE, backward, clamp) from the
     checkpoint on the card, on the card with the plain versions swapped in
     (which isolates the kernels' share of any gap), and on the CPU.
@@ -814,7 +888,6 @@ def gpu_vs_cpu_step(ckpt, ensemble, batch, kernels="auto", enforce=True):
     between card and CPU."""
     with timed("step.load"):
         state, _ = load_checkpoint(ckpt, "last")
-    cfg = criteo_config(ensemble, kernels)
     lg, yg, gg, (sg, cond) = one_step_grads(state, cfg, batch, "cuda",
                                             (entmax_support, u_kappa))
     with plain_versions_on_card():
@@ -862,7 +935,8 @@ def gpu_vs_cpu_step(ckpt, ensemble, batch, kernels="auto", enforce=True):
            "support_rows": CPU_ROWS,
            "strict_elementwise_outside": {
                n: v["elements"] for n, v in strict_outside.items()}}
-    log("train_gpu_vs_cpu", ensemble=ensemble, kernels=kernels, ckpt=ckpt,
+    log("train_gpu_vs_cpu", ensemble=cfg.ensemble, kernels=cfg.kernels,
+        nfield=cfg.nfield, alpha=cfg.alpha, ckpt=ckpt,
         enforced=enforce, **res, outside_bound=bad, per_param=per_param,
         strict_worst=strict_outside)
     if not enforce:
@@ -956,15 +1030,15 @@ def phase_train(tmp):
                 ckpt, os.path.join(data, "criteo", "valid.libsvm"),
                 os.path.join(tmp, f"{exp}.scores"), EVAL_ROWS, score_kernel)
         with timed("train.gpu_vs_cpu"):
+            cfg = criteo_config(ensemble, kernels)
             if not fused:
-                gap = gpu_vs_cpu_step(ckpt, ensemble, first)
+                gap = gpu_vs_cpu_step(ckpt, cfg, first)
             else:
                 # held from the state the auto run's step was held at, so
                 # the two kernel choices are compared at one conditioning;
                 # the fused run's own state is logged beside it
-                gap = gpu_vs_cpu_step(state_ckpt, ensemble, first, kernels)
-                gpu_vs_cpu_step(ckpt, ensemble, first, kernels,
-                                enforce=False)
+                gap = gpu_vs_cpu_step(state_ckpt, cfg, first)
+                gpu_vs_cpu_step(ckpt, cfg, first, enforce=False)
         if not ensemble and not fused:
             state_ckpt = ckpt
         with timed("train.warm_rate"):
@@ -1050,6 +1124,69 @@ def phase_frappe_train(tmp):
     return counts
 
 
+def phase_diabetes_train(tmp):
+    """3 epochs of the db_armnet1h recipe (armnet_tpu/utils/presets.py: 43
+    fields, alpha 1.7, batch 1024) through cli.main on the bundled
+    data/uci_diabetes/ split, under --kernels auto and pallas-fused: the
+    kernel launches per step (K2/K4 under auto, K5/K6 under pallas-fused,
+    their 43 fields past the fused kernels' 40-field register bucket),
+    finite step losses whose last epoch's mean is below the first's, one
+    step from the run's checkpoint on the card against the CPU (loss 1e-5
+    relative, gradients norm-wise at rtol max(1e-4, 16 u kappa): ROADMAP
+    §3), and the valid and test AUC per epoch."""
+    data = os.path.join(REPO, "data")
+    split = os.path.join(data, "uci_diabetes")
+    loaders = {name: BatchIterator(LibsvmDataset(
+        os.path.join(split, f"{name}.libsvm"), 43), 1024)
+        for name in ("train", "valid", "test")}
+    first = next(iter(loaders["train"]))
+    steps = 3 * len(loaders["train"])
+    evals = 3 * (len(loaders["valid"]) + len(loaders["test"]))
+    totals = dict.fromkeys(read_counts(), 0)
+    for kernels in ("auto", "pallas-fused"):
+        exp = f"diabetes_{kernels}"
+        flags = DIABETES_FLAGS + ["--kernels", kernels]
+        with timed("diabetes_train.cli"):
+            _, counts, seconds = run_cli(flags + [
+                "--data_dir", data, "--epoch", "3", "--patience", "3",
+                "--report_freq", "1", "--seed", str(SEED), "--exp_name",
+                exp, "--log_dir", os.path.join(tmp, "log"), "--ckpt_dir",
+                os.path.join(tmp, "ckpt"), "--device", "cuda"])
+        want = {"entmax_fwd": steps + evals, "entmax_bwd": steps,
+                "table_grad": steps, "arm1h_fwd": 0, "arm1h_bwd": 0}
+        if kernels == "pallas-fused":
+            want.update(entmax_fwd=0, entmax_bwd=0, arm1h_fwd=steps + evals,
+                        arm1h_bwd=steps)
+        check(counts == want, f"diabetes launches {counts}, expected {want} "
+                              f"({steps} steps, {evals} eval batches)")
+        losses, means = train_losses(os.path.join(
+            tmp, "log", f"{exp}_{SEED}", "stdout.log"))
+        flat = [x for ep in losses for x in ep]
+        check(len(flat) == steps and all(math.isfinite(x) for x in flat),
+              f"diabetes train losses {losses}")
+        check(means[-1] < means[0], f"diabetes epoch mean losses {means} "
+                                    f"do not fall")
+        with open(os.path.join(tmp, "log", f"{exp}_{SEED}",
+                               "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        cfg = ExperimentConfig(**vars(build_arg_parser().parse_args(flags)))
+        with timed("diabetes_train.gpu_vs_cpu"):
+            gap = gpu_vs_cpu_step(os.path.join(tmp, "ckpt", f"{exp}_{SEED}"),
+                                  cfg, first)
+        log("diabetes_train", recipe="db_armnet1h", kernels=kernels,
+            steps=steps, eval_batches=evals, launches=counts,
+            per_step={k: counts[k] / steps for k in counts},
+            cli_seconds=seconds, first_step_loss=flat[0],
+            epoch_mean_loss=means, valid_auc=[r["valid"] for r in rows],
+            test_auc=[r["test"] for r in rows],
+            gpu_vs_cpu={k: gap[k] for k in (
+                "loss_rel_gap", "logits_max_abs_gap", "u_kappa", "grad_rtol",
+                "max_grad_rel_gap", "support_flip_columns")})
+        for k in totals:
+            totals[k] += counts[k]
+    return totals
+
+
 def main():
     phase_device()
     # full-f32 GEMMs on both sides of every comparison
@@ -1058,9 +1195,10 @@ def main():
     with timed("build"):
         phase_build()
     with timed("kernel"):
-        fwd = phase_kernel()[2.0]                 # cr_armnet1h's alpha
+        fwd_all = phase_kernel()
     with timed("kernel_bwd"):
-        bwd = phase_kernel_bwd()[2.0]
+        bwd_all = phase_kernel_bwd()
+    fwd, bwd = fwd_all[2.0], bwd_all[2.0]         # cr_armnet1h's alpha
     with timed("kernel_table_grad"):
         tg = phase_kernel_table_grad()
     with timed("kernel_arm"):
@@ -1078,8 +1216,10 @@ def main():
             train = phase_train(tmp)
         with timed("frappe_train"):
             frappe = phase_frappe_train(tmp)
+        with timed("diabetes_train"):
+            diabetes = phase_diabetes_train(tmp)
     log("seconds", **SECONDS)
-    launches = {k: train[k] + frappe[k] for k in train}
+    launches = {k: train[k] + frappe[k] + diabetes[k] for k in train}
     launches["entmax_fwd"] += serve
     launches["arm1h_fwd"] += serve_fused
     arm_lines = [
@@ -1088,9 +1228,13 @@ def main():
          "replaces": f"armnet_tpu/kernels/arm_pallas.py:{line}",
          "launches": launches[f"arm1h_{kind}"],
          **arm[(kind, 2.0)], "library_ms": None,
-         "shape": dict(zip("BFEDO", CRITEO_ARM)), "alpha": 2.0}
-        for kind, line, source in (("fwd", 184, "arm1h.cu"),
-                                   ("bwd", 211, "arm1h_bwd.cuh"))]
+         "shape": dict(zip("BFEDO", CRITEO_ARM)), "alpha": 2.0,
+         "also_source": f"armnet_tpu_torch/kernels/csrc/{col}",
+         "diabetes": {"shape": dict(zip("BFEDO", DIABETES_ARM)),
+                      "alpha": 1.7, **arm[(kind, 1.7, "diabetes")]}}
+        for kind, line, source, col in (
+            ("fwd", 184, "arm1h.cu", "arm1h_col.cu"),
+            ("bwd", 211, "arm1h_bwd.cuh", "arm1h_bwd_col.cu"))]
 
     crit = tg["criteo_batch"]
     zipf = {k[len("zipf_"):]: {"table_grad_ms": v["whole_ms"],
@@ -1107,11 +1251,14 @@ def main():
          "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": None,
          "shape": list(CRITEO_SHAPE), "alpha": 2.0,
-         "bucket": entmax_cuda.bucket_for(CRITEO_SHAPE[1]),
+         "bucket": entmax_cuda.route_for(CRITEO_SHAPE[1])[1],
          "frappe_ms": fwd["frappe_ms"],
-         "frappe_bucket": entmax_cuda.bucket_for(FRAPPE_SHAPE[1])},
+         "frappe_bucket": entmax_cuda.route_for(FRAPPE_SHAPE[1])[1],
+         "also_source": "armnet_tpu_torch/kernels/csrc/entmax_fwd_column.cu",
+         "diabetes": {"alpha": 1.7, **fwd_all[1.7]["diabetes"]},
+         "d100": {"alpha": 2.0, **fwd["d100"]}},
         {"name": "entmax_bwd", "route": "cuda",
-         "source": "armnet_tpu_torch/kernels/csrc/entmax.cu",
+         "source": "armnet_tpu_torch/kernels/csrc/entmax_bwd.cu",
          "replaces": "armnet_tpu/kernels/entmax_pallas.py:159",
          "also_replaces": "armnet_tpu/kernels/entmax_pallas.py:53",
          "launches": launches["entmax_bwd"],
@@ -1119,7 +1266,12 @@ def main():
          "host_incl_ms": bwd["host_incl_ms"],
          "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
          "bound_by": bwd["bound_by"], "library_ms": None,
-         "shape": list(CRITEO_SHAPE), "alpha": 2.0},
+         "shape": list(CRITEO_SHAPE), "alpha": 2.0,
+         "blocks_per_sm": bwd["blocks_per_sm"],
+         "ms_by_alpha": {a: v["ms"] for a, v in bwd_all.items()},
+         "frappe": {"alpha": 2.0, **bwd["frappe"]},
+         "diabetes": {"alpha": 1.7, **bwd_all[1.7]["diabetes"]},
+         "d100": {"alpha": 2.0, **bwd["d100"]}},
         {"name": "table_grad", "route": "cuda",
          "source": "armnet_tpu_torch/kernels/csrc/table_grad.cu",
          "replaces": "armnet_tpu/kernels/scatter_pallas.py:122",

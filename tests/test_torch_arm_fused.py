@@ -131,20 +131,61 @@ def test_plain_versions_match_jax_at_edge_shapes(shape, alpha):
                                    atol=5e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("f", [41, 43, 64])
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_plain_versions_match_jax_past_40_fields(alpha, f):
+    """Past the kernels' 40-field register bucket (the Diabetes130 recipe's
+    43 fields among them), where the CUDA kernels hold the gate column in
+    shared memory: the plain versions' forward (rtol/atol 2e-5) and four
+    gradients (rtol 5e-4, atol 5e-5) against the JAX fused kernel in
+    interpret mode and jax.grad through it."""
+    arrays = _inputs(b=3, f=f, e=4, dk=4, o=9, seed=f)
+    jarrays = list(map(jnp.asarray, arrays))
+    want = np.asarray(jax_arm1h_fused(*jarrays, alpha))
+    want_g = jax.grad(lambda *a: jnp.sum(jnp.sin(jax_arm1h_fused(*a, alpha))),
+                      argnums=(0, 1, 2, 3))(*jarrays)
+    got, got_g = _port_grads(arm1h_fused, arrays, alpha)
+    assert got.shape == want.shape == (3, 9, 4)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=2e-5,
+                               atol=2e-5)
+    for name, g, w in zip(("emb", "wk", "query", "values"), got_g, want_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-4,
+                                   atol=5e-5, err_msg=name)
+
+
 def _pad4(n):
     return (n + 3) // 4 * 4
 
 
 @pytest.mark.parametrize("f,e,dk,o", [(39, 10, 10, 128), (10, 10, 10, 128),
                                       (40, 16, 16, 200), (1, 1, 1, 1),
-                                      (17, 5, 7, 96)])
+                                      (17, 5, 7, 96), (41, 10, 10, 128),
+                                      (43, 10, 10, 128), (128, 5, 7, 96)])
 def test_smem_bytes_follow_the_kernels_layouts(f, e, dk, o):
     """The forward wrapper's shared-memory size against the layout
     documented in csrc/arm1h.cu (fwd_smem): emb and keys with rows padded
-    to 4 floats, then the row's outputs [O, E]. (K6's layout has one owner,
-    csrc/arm1h_bwd.cuh, which the wrapper asks through its C entry.)"""
+    to 4 floats, then the row's outputs [O, E]; past 40 fields the
+    threads' gate columns [F, 128] (csrc/arm1h_col.cu col_smem). (K6's
+    layout has one owner, csrc/arm1h_bwd.cuh, which the wrapper asks
+    through its C entry.)"""
+    cols = f * 128 if f > 40 else 0
     assert arm_cuda.fwd_smem_bytes(f, e, dk, o) == 4 * (
-        f * _pad4(e) + f * _pad4(dk) + o * e)
+        f * _pad4(e) + f * _pad4(dk) + o * e + cols)
+
+
+def test_fused_kernels_refuse_only_past_shared_memory():
+    """No field count is refused up front: K5 at 500 fields raises for the
+    shared memory its columns need (309,120 bytes, more than a block's
+    232,448), and 43 fields pass the checks to the CUDA-tensor test."""
+    assert arm_cuda.fwd_smem_bytes(43, 10, 10, 128) <= arm_cuda.SMEM_BYTES
+    assert arm_cuda.fwd_smem_bytes(500, 10, 10, 128) == 309_120
+    with pytest.raises(ValueError, match="shared memory"):
+        arm_cuda._smem_check("arm1h_fwd_kernel",
+                             arm_cuda.fwd_smem_bytes(500, 10, 10, 128))
+    arrays = [torch.from_numpy(a) for a in _inputs(b=2, f=43, seed=6)]
+    with pytest.raises(ValueError, match="CUDA"):
+        arm_cuda.arm1h_fwd_kernel(arrays[0], arrays[1], arrays[2],
+                                  arrays[3].t().contiguous(), 1.7)
 
 
 def test_fused_dispatch_and_refusals():

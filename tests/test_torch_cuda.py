@@ -33,9 +33,11 @@ def cuda():
     return torch.device("cuda")
 
 
-# every register bucket (8/16/32/64) and its edges, middle and last axes
+# every register bucket (8/16/32/64) and its edges, middle and last axes,
+# and columns past the buckets (the forward's shared-memory route)
 SHAPES = [((3, 1, 5), 1), ((64, 8), 0), ((5, 9, 7), 1), ((2, 16, 33), 1),
-          ((4, 17, 3), 1), ((40, 33), 0), ((6, 64, 10), 1), ((2, 3, 39), -1)]
+          ((4, 17, 3), 1), ((40, 33), 0), ((6, 64, 10), 1), ((2, 3, 39), -1),
+          ((3, 65, 37), 1), ((100, 21), 0), ((2, 7, 300), -1)]
 
 
 @pytest.mark.parametrize("shape,axis", SHAPES)
@@ -87,23 +89,39 @@ def test_entmax_kernel_bucket_edges(cuda, alpha, d):
 
 @pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
 def test_entmax_fwd_refuses_a_bucket_it_lacks(cuda, alpha):
-    """Each forward C entry takes only the buckets it instantiates
-    (multiples of 8 up to 64, d <= bucket) and only its own solver modes
-    (entmax.cu the bisection modes, entmax_fastpow.cu and entmax_newton.cu
-    one powf mode each)."""
-    fn = entmax_cuda.fwd_function(alpha)
+    """Each forward C entry of the register buckets takes only the buckets
+    it instantiates (multiples of 8 up to 64, d <= bucket) and only its own
+    solver modes (entmax.cu the bisection modes, entmax_fastpow.cu and
+    entmax_newton.cu one powf mode each); the column entry takes blocks of
+    32, 64 or 128 columns whose shared memory fits a block, and every
+    mode."""
+    fn = entmax_cuda.fwd_function(alpha, ("register", 16))
     x = torch.randn((2, 10, 5), device=cuda)
     y = torch.empty_like(x)
     for bucket in (12, 8, 72):
-        assert fn(*entmax_cuda.fwd_args(x, y, alpha, 2, 10, 5, bucket)) != 0
-    args = list(entmax_cuda.fwd_args(x, y, alpha, 2, 10, 5, 16))
+        assert fn(*entmax_cuda.fwd_args(x, y, alpha, 2, 10, 5,
+                                        ("register", bucket))) != 0
+    args = list(entmax_cuda.fwd_args(x, y, alpha, 2, 10, 5,
+                                     ("register", 16)))
     assert fn(*args) == 0
     args[6] = entmax_cuda.mode_id(2.5 if alpha < 2.5 else 2.0)
     assert fn(*args) != 0
+    col = entmax_cuda.fwd_function(alpha, ("shared", 128))
+    for route in (("shared", 96), ("shared", 256)):
+        assert col(*entmax_cuda.fwd_args(x, y, alpha, 2, 10, 5, route)) != 0
+    x = torch.randn((1, 500, 128), device=cuda)
+    y = torch.empty_like(x)
+    assert col(*entmax_cuda.fwd_args(x, y, alpha, 1, 500, 128,
+                                     ("shared", 128))) != 0
+    for route in (("shared", 64), ("global", 128)):
+        assert col(*entmax_cuda.fwd_args(x, y, alpha, 1, 500, 128,
+                                         route)) == 0
     torch.cuda.synchronize()
 
 
 def test_entmax_kernel_counts_launches_and_rejects(cuda):
+    """One launch a call, past the register buckets too (no length of the
+    axis is refused); a transposed or float64 input is."""
     x = torch.randn(4, 39, 16, device=cuda)
     before = entmax_cuda.LAUNCHES
     entmax_bisect(x, 2.0, axis=1)
@@ -112,9 +130,26 @@ def test_entmax_kernel_counts_launches_and_rejects(cuda):
         entmax_cuda.entmax_kernel(x.transpose(1, 2), 2.0, 1)
     with pytest.raises(TypeError):
         entmax_cuda.entmax_kernel(x.double(), 2.0, 1)
-    with pytest.raises(ValueError, match="at most"):
-        entmax_cuda.entmax_kernel(torch.randn(2, 65, device=cuda), 2.0, 1)
-    assert entmax_cuda.LAUNCHES == before + 1
+    entmax_cuda.entmax_kernel(torch.randn(2, 65, device=cuda), 2.0, 1)
+    assert entmax_cuda.LAUNCHES == before + 2
+
+
+@pytest.mark.parametrize("d", [65, 100, 300, 2000])
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_entmax_kernel_past_the_register_buckets(cuda, alpha, d):
+    """d > 64: the column in shared memory (blocks of 128 columns at 65,
+    100 and 300) or, at 2000, in the output, against the plain version,
+    with a NaN column; on an odd number of columns, so that the last
+    block's threads hold some past the end."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((2, d, 37), generator=g, device=cuda) * 3.0
+    x[1, d // 2, 5] = float("nan")
+    yk = entmax_cuda.entmax_kernel(x, alpha, 1)
+    yp = entmax_cuda.entmax_plain(x, alpha, 1)
+    torch.cuda.synchronize()
+    assert bool(yk[1, :, 5].isnan().all()) and int(yk.isnan().sum()) == d
+    tol = 1e-5 if alpha > 2 else 5e-6
+    torch.testing.assert_close(yk, yp, rtol=0, atol=tol, equal_nan=True)
 
 
 @pytest.mark.parametrize("kernels", ["auto", "pallas-fused"])
@@ -144,6 +179,38 @@ def test_entmax_bwd_kernel_matches_plain(cuda, alpha, shape, axis):
     dp = entmax_cuda.entmax_bwd_plain(y, dy, alpha, axis)
     torch.cuda.synchronize()
     torch.testing.assert_close(dk, dp, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [1, 5, 39, 64, 65, 100, 300])
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_entmax_bwd_kernel_any_d(cuda, alpha, d):
+    """The backward takes any d: in one stage of its slabs and in several
+    (d > 64), on 128 columns a row (its bulk copies) and on 37 (the
+    threads' own loads), with a NaN column, against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for inner in (128, 37):
+        x = torch.randn((3, d, inner), generator=g, device=cuda) * 3.0
+        x[1, d // 2, 5] = float("nan")
+        y = entmax_cuda.entmax_kernel(x, alpha, 1)
+        dy = torch.randn((3, d, inner), generator=g, device=cuda)
+        dk = entmax_cuda.entmax_bwd_kernel(y, dy, alpha, 1)
+        dp = entmax_cuda.entmax_bwd_plain(y, dy, alpha, 1)
+        torch.cuda.synchronize()
+        assert bool(dk[1, :, 5].isnan().all()) and int(dk.isnan().sum()) == d
+        torch.testing.assert_close(dk, dp, rtol=0, atol=2e-5, equal_nan=True)
+
+
+def test_entmax_bwd_launch_after_an_occupancy_query(cuda):
+    """An occupancy query at a short column leaves the kernel's shared
+    memory limit where a later, longer launch (d = 47, 47 KB of slabs)
+    still fits."""
+    assert entmax_cuda.bwd_blocks_per_sm(10, 2.0) >= 8
+    x = torch.randn((4, 47, 128), device=cuda)
+    y = entmax_cuda.entmax_kernel(x, 2.0, 1)
+    dy = torch.randn_like(y)
+    torch.testing.assert_close(entmax_cuda.entmax_bwd_kernel(y, dy, 2.0, 1),
+                               entmax_cuda.entmax_bwd_plain(y, dy, 2.0, 1),
+                               rtol=0, atol=2e-5)
 
 
 @pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
@@ -338,14 +405,19 @@ def test_train_step_gpu_matches_cpu(cuda, ensemble, kernels):
 # than K6's grid (its blocks loop over rows), E = dk = 16 (one pass of K6's
 # register sums), and wider embeddings that take several: Frappe at nemb
 # 100 with h 10, widths that are not a multiple of 16, and 128, the widest
-# K6's shared memory holds at 39 fields
+# K6's shared memory holds at 39 fields; past the 40-field bucket (the
+# threads' columns in shared memory) F 41, 43 (the Diabetes130 step at
+# batch 1024, and the wide build), 64 and 128
 ARM_SHAPES = [(256, 39, 10, 10, 128), (257, 10, 10, 10, 128),
               (24, 7, 6, 6, 9), (5, 16, 4, 3, 200), (1, 39, 10, 10, 128),
               (9, 40, 5, 7, 33), (3, 17, 4, 4, 130), (64, 39, 10, 10, 200),
               (64, 39, 10, 10, 96), (64, 16, 10, 10, 128),
               (64, 17, 10, 10, 128), (1100, 39, 10, 10, 128),
               (6, 5, 16, 16, 20), (64, 10, 100, 100, 10),
-              (16, 39, 33, 20, 130), (4, 39, 128, 128, 16)]
+              (16, 39, 33, 20, 130), (4, 39, 128, 128, 16),
+              (64, 41, 10, 10, 128), (1024, 43, 10, 10, 128),
+              (16, 43, 33, 20, 130), (32, 64, 10, 10, 128),
+              (16, 128, 10, 10, 128), (9, 45, 5, 7, 33)]
 
 
 def _arm_inputs(cuda, shape, seed=0):
@@ -400,9 +472,15 @@ def test_arm1h_kernels_count_launches_and_reject(cuda):
         fwd(emb.double(), wk, q, vt, 2.0)
     with pytest.raises(ValueError, match="contiguous"):
         fwd(emb.transpose(0, 1).contiguous().transpose(0, 1), wk, q, vt, 2.0)
-    with pytest.raises(ValueError, match="fields"):
-        fwd(torch.zeros((2, 41, 10), device=cuda), wk, q,
-            torch.zeros((41, 128), device=cuda), 2.0)
+    # past 40 fields F is bounded by shared memory: K5's columns at 500
+    # fields and K6's plan at 200 do not fit a block
+    with pytest.raises(ValueError, match="shared memory"):
+        fwd(torch.zeros((2, 500, 10), device=cuda), wk, q,
+            torch.zeros((500, 128), device=cuda), 2.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        arm_cuda.arm1h_bwd_kernel(torch.zeros((2, 200, 10), device=cuda),
+                                  wk, q, torch.zeros((200, 128), device=cuda),
+                                  dout[:2], 2.0)
     with pytest.raises(ValueError, match="alpha"):
         fwd(emb, wk, q, vt, 1.0)
     with pytest.raises(ValueError, match="fit"):
@@ -442,3 +520,17 @@ def test_arm1h_bwd_grid_at_wide_embeddings(cuda, alpha):
     assert arm_cuda.bwd_blocks_per_sm(39, 129, 129, 128, alpha) == 0
     with pytest.raises(ValueError, match="shared memory"):
         arm_cuda.bwd_grid(64, 39, 129, 129, 128, alpha, cuda)
+
+
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_arm1h_plan_past_40_fields(cuda, alpha):
+    """Past 40 fields the columns take shared memory: K5 and K6 hold at
+    least one block per SM up to 128 fields at E = dk = 10, O = 128 (the
+    Diabetes130 step's 43 too, and the wide build's E 33, dk 20 there), and
+    none where the plan does not fit: K5 at 500 fields, K6 at 200."""
+    for f in (41, 43, 64, 128):
+        assert arm_cuda.fwd_blocks_per_sm(f, 10, 10, 128, alpha) >= 1
+        assert arm_cuda.bwd_blocks_per_sm(f, 10, 10, 128, alpha) >= 1
+    assert arm_cuda.bwd_blocks_per_sm(43, 33, 20, 130, alpha) >= 1
+    assert arm_cuda.fwd_blocks_per_sm(500, 10, 10, 128, alpha) == 0
+    assert arm_cuda.bwd_blocks_per_sm(200, 10, 10, 128, alpha) == 0

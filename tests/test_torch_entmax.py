@@ -92,14 +92,16 @@ def test_solver_branches():
 
 @pytest.mark.parametrize("d", range(1, 66))
 def test_forward_register_bucket(d):
-    """The forward kernel's bucket is the least multiple of 8 that holds d
-    (the Criteo d = 39 in 40, Frappe's 10 in 16); past 64 it raises."""
-    if d > entmax_cuda.MAX_D:
-        with pytest.raises(ValueError, match="64"):
-            entmax_cuda.bucket_for(d)
+    """The forward kernel's route: up to 64 entries the register bucket,
+    the least multiple of 8 that holds d (the Criteo d = 39 in 40, Frappe's
+    10 in 16, Diabetes130's 43 in 48); past 64 the shared-memory column in
+    blocks of 128 columns, with no raise."""
+    where, n = entmax_cuda.route_for(d)
+    if d > entmax_cuda.REGISTER_D:
+        assert (where, n) == ("shared", 128)
         return
-    b = entmax_cuda.bucket_for(d)
-    assert b % 8 == 0 and b - 8 < d <= b <= entmax_cuda.MAX_D
+    assert where == "register"
+    assert n % 8 == 0 and n - 8 < d <= n <= entmax_cuda.REGISTER_D
 
 
 @pytest.mark.parametrize("mangled,name", [
@@ -200,6 +202,29 @@ def test_backward_matches_pallas_interpret(alpha, shape):
             xt.grad.numpy(),
             entmax_cuda.entmax_bwd_plain(y.detach(), torch.from_numpy(dy),
                                          alpha, 1).numpy())
+
+
+@pytest.mark.parametrize("entry", ["mid", "general"])
+@pytest.mark.parametrize("d", [43, 65, 100])
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_long_columns_match_pallas_interpret(alpha, d, entry):
+    """Columns of the Diabetes130 recipe's 43 fields and past the CUDA
+    forward's register buckets (65, 100): the port's plain forward and VJP
+    against the Pallas entries in interpret mode, the mid-axis kernels
+    (K2/K4) on a lane-aligned last dim and the general ones (K1/K3) on a
+    ragged one, at the tolerances above (forward _tol, dx BWD_ATOL; dx from
+    JAX's own y, as test_backward_matches_pallas_interpret holds it)."""
+    shape = (2, d, 128) if entry == "mid" else (3, d, 5)
+    x, dy = _x(shape, seed=d), _x(shape, seed=d + 1, scale=1.0)
+    with torch.no_grad():
+        yt = entmax_bisect(torch.from_numpy(x), alpha, axis=1).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        yj, dxj = _jax_vjp(lambda v: entmax_pallas(v, alpha=alpha, axis=1),
+                           x, dy)
+    np.testing.assert_allclose(yt, yj, atol=_tol(alpha))
+    dxp = entmax_cuda.entmax_bwd_plain(torch.from_numpy(yj.copy()),
+                                       torch.from_numpy(dy), alpha, 1)
+    np.testing.assert_allclose(dxp.numpy(), dxj, atol=BWD_ATOL)
 
 
 @pytest.mark.parametrize("axis", [0, -1])

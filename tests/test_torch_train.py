@@ -37,7 +37,7 @@ from armnet_tpu.train.step import create_train_state as jax_train_state
 from armnet_tpu.train.step import init_meters as jax_init_meters
 from armnet_tpu.train.step import make_train_step as jax_make_train_step
 from armnet_tpu.utils.config import ExperimentConfig as JaxExperimentConfig
-from armnet_tpu_torch import predict
+from armnet_tpu_torch import predict, set_matmul_precision
 from armnet_tpu_torch.bridge import (flatten_flax, from_jax_arrays,
                                      params_from_jax)
 from armnet_tpu_torch.data.libsvm import (BatchIterator, LibsvmDataset,
@@ -52,7 +52,7 @@ from armnet_tpu_torch.train.loop import Trainer
 from armnet_tpu_torch.train.metrics import masked_bce, masked_softmax_ce
 from armnet_tpu_torch.train.step import (create_train_state, forward_loss,
                                          init_meters, make_train_step)
-from armnet_tpu_torch.utils.config import ExperimentConfig
+from armnet_tpu_torch.utils.config import ExperimentConfig, build_arg_parser
 
 NFIELD, NFEAT, NEMB, BSZ = 5, 600, 4, 64
 LR = 0.003
@@ -66,14 +66,14 @@ def small_kw(**kw):
     return base
 
 
-def make_batches(n, seed, pad_last=0):
-    """n batches of BSZ rows; the last one padded as the loader pads
-    (id 0, value 1.0, label 0, mask 0) when pad_last > 0."""
+def make_batches(n, seed, pad_last=0, nfield=NFIELD):
+    """n batches of BSZ rows of nfield fields; the last one padded as the
+    loader pads (id 0, value 1.0, label 0, mask 0) when pad_last > 0."""
     rng = np.random.RandomState(seed)
     out = []
     for i in range(n):
-        b = {"id": rng.randint(0, NFEAT, (BSZ, NFIELD)).astype(np.int32),
-             "value": rng.uniform(0.0, 1.2, (BSZ, NFIELD)).astype(np.float32),
+        b = {"id": rng.randint(0, NFEAT, (BSZ, nfield)).astype(np.int32),
+             "value": rng.uniform(0.0, 1.2, (BSZ, nfield)).astype(np.float32),
              "y": (rng.rand(BSZ) < 0.4).astype(np.float32),
              "mask": np.ones(BSZ, np.float32)}
         if pad_last and i == n - 1:
@@ -109,7 +109,7 @@ def init_pair(kw, seed, kernels="auto"):
     `kernels`) from one JAX init with embeddings widened to [-0.5, 0.5]
     (so the exponential neurons leave 1) and random running statistics."""
     jm = jax_create_model(JaxModelConfig(**kw))
-    b0 = make_batches(1, seed)[0]
+    b0 = make_batches(1, seed, nfield=kw["nfield"])[0]
     v = jm.init(jax.random.PRNGKey(seed),
                 {"id": jnp.asarray(b0["id"]), "value": jnp.asarray(b0["value"])})
     flat = flatten_flax(jax.tree.map(np.array, v))
@@ -294,6 +294,86 @@ def test_trajectory_matches_jax_train_step(backend, ensemble):
     assert lt[-1] < lt[0]
     np.testing.assert_allclose(np.asarray(lt), lj, atol=5e-4)
     np.testing.assert_allclose(yt, yj, atol=1e-2)
+
+
+def test_debug_nans_stops_at_the_first_non_finite_step():
+    """With debug_nans a train step whose loss or gradients hold a NaN
+    raises FloatingPointError naming the step, before the update (the
+    weights are those of the step before); without it, and on clean
+    batches, nothing is raised."""
+    cfg = ModelConfig(**small_kw())
+    state = create_train_state(create_model(cfg, seed=0), LR)
+    step = make_train_step(debug_nans=True)
+    meters = init_meters("cpu")
+    clean, bad = make_batches(2, seed=8)
+    meters = step(state, meters, to_torch(clean))
+    assert state.step == 1
+    bad["value"][3, 2] = np.nan
+    before = [p.detach().clone() for p in state.model.parameters()]
+    with pytest.raises(FloatingPointError, match="train step 1 .*loss"):
+        step(state, meters, to_torch(bad))
+    assert state.step == 1
+    for a, p in zip(before, state.model.parameters()):
+        assert torch.equal(a, p.detach())
+    quiet = make_train_step()
+    quiet(state, init_meters("cpu"), to_torch(bad))
+    assert state.step == 2
+
+
+def test_debug_nans_flag_reaches_the_trainer(tmp_path, quiet_logger):
+    """--debug_nans parses into the config, and the trainer's step raises
+    on a NaN batch; without the flag it does not."""
+    write_split(str(tmp_path / "d"), seed=2)
+    for flag, raises in ((["--debug_nans"], True), ([], False)):
+        cfg = ExperimentConfig(**vars(build_arg_parser().parse_args(
+            ["--model", "armnet_1h", "--nfeat", str(NFEAT), "--nfield",
+             str(NFIELD), "--nemb", str(NEMB), "--device", "cpu"] + flag)))
+        assert cfg.debug_nans is raises
+        loaders = make_dataloaders("d", str(tmp_path), NFIELD, BSZ, seed=3)
+        t = Trainer(cfg, *loaders, quiet_logger, seed=3)
+        bad = make_batches(1, seed=9)[0]
+        bad["value"][0, 0] = np.inf * 0.0
+        if raises:
+            with pytest.raises(FloatingPointError):
+                t.train_step(t.state, init_meters("cpu"), to_torch(bad))
+        else:
+            t.train_step(t.state, init_meters("cpu"), to_torch(bad))
+
+
+@pytest.fixture
+def restore_matmul_precision():
+    yield
+    set_matmul_precision("highest")
+
+
+@pytest.mark.parametrize("precision,tf32", [("default", False),
+                                            ("highest", False),
+                                            ("high", True)])
+def test_matmul_precision_flag(tmp_path, restore_matmul_precision,
+                               precision, tf32):
+    """--matmul_precision reaches the GEMM settings through the CLI:
+    default and highest keep full f32, high allows TF32."""
+    set_matmul_precision("high" if not tf32 else "highest")
+    write_split(str(tmp_path / "data" / "tiny"), seed=4)
+    cli.main(["--model", "armnet_1h", "--nfeat", str(NFEAT), "--nfield",
+              str(NFIELD), "--nemb", str(NEMB), "--h", "8", "--mlp_nhid",
+              "8", "--batch_size", str(BSZ), "--epoch", "1", "--dataset",
+              "tiny", "--data_dir", str(tmp_path / "data"), "--log_dir",
+              str(tmp_path / "log"), "--device", "cpu",
+              "--matmul_precision", precision])
+    assert torch.backends.cuda.matmul.allow_tf32 is tf32
+    assert torch.backends.cudnn.allow_tf32 is tf32
+    assert torch.get_float32_matmul_precision() == (
+        "high" if tf32 else "highest")
+
+
+def test_matmul_precision_rejects_other_values(restore_matmul_precision):
+    """Any other value raises: from the parser, and from a config that
+    bypasses it (checkpoint metadata)."""
+    with pytest.raises(ValueError, match="matmul_precision"):
+        set_matmul_precision("bf16")
+    with pytest.raises(SystemExit):
+        build_arg_parser().parse_args(["--matmul_precision", "fastest"])
 
 
 def _trained_state(cfg, nsteps):
