@@ -8,7 +8,8 @@ Layers (bottom-up):
              and the plain PyTorch version of each
   ops/       embedding gather, layers, entmax dispatch, ARM interaction,
              each differentiable (autograd Functions over the kernels)
-  models/    armnet_1h (the other zoo names are not ported yet)
+  models/    armnet_1h, armnet, gc_arm, sa_glu, afn (the other zoo names
+             are not ported yet)
   data/      libsvm parse, fixed-shape batches, the shuffled train iterator
   train/     losses and metrics, the train/eval step, the epoch loop with
              early stopping, checkpoints, and the training CLI

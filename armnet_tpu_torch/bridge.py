@@ -7,6 +7,7 @@
   BatchNorm_i/BatchNorm_0/...      -> norms.i.{weight, bias, running_*}
   <bn>/BatchNorm_0/scale|mean|var  -> <bn>.weight|running_mean|running_var
   <table>/embedding [R*E] or [R,E] -> <table>.weight [R, E]
+  embedding (a top-level table, AFN)  -> embedding [R, E]
 
 Every other leaf (bilinear_w, query, values, ens_kernel, ...) keeps its
 name and layout. Raises on a JAX leaf it does not consume and on a port
@@ -56,7 +57,7 @@ def _port_key(jax_key):
     if leaf == "kernel" and mods and mods[-1].startswith("TorchLinear_"):
         return ".".join(path + ["weight"]), "transpose"
     if leaf == "embedding":
-        return ".".join(path + ["weight"]), "table"
+        return ".".join(path + ["weight"]) if path else leaf, "table"
     return ".".join(path + [_LEAF.get(leaf, leaf)]), "copy"
 
 

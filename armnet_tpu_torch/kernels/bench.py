@@ -64,6 +64,8 @@ SEED = 2025
 # (tests/test_parallel.py); neither is measured on Criteo's ids
 ZIPF_EXPONENTS = (0.99, 1.5)
 HOLD_CYCLES = 2_000_000   # ~1 ms of the card's clock: longer than any enqueue
+PROFILE_TRIES = 3
+EMPTY_SESSIONS = 0        # profiler sessions that recorded no device event
 
 
 def _event_ms(fn, reps, warmup, hold):
@@ -189,22 +191,43 @@ def table_grad_cases(device="cuda"):
     return cases
 
 
-def kernel_device_ms(fn, reps=5):
-    """{kernel name: device ms per call of fn}, from torch.profiler over
-    reps calls after one warm call."""
+def device_events(run, activities=None, tries=PROFILE_TRIES):
+    """(the device events with device time of prof.key_averages(), what
+    run() returned) of the first of `tries` torch.profiler sessions over
+    run() (activities: CUDA alone by default) that records a device event
+    at all: on the card under torch 2.11 a session now and then recorded
+    none, at any point of a process. ([], the last return) if none does;
+    every empty session adds one to EMPTY_SESSIONS."""
+    global EMPTY_SESSIONS
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(tries):
+        with profile(activities=activities
+                     or [ProfilerActivity.CUDA]) as prof:
+            ret = run()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if events:
+            return events, ret
+        EMPTY_SESSIONS += 1
+    return [], ret
+
+
+def kernel_device_ms(fn, reps=5):
+    """{kernel name: device ms per call of fn}, from torch.profiler over
+    reps calls after one warm call ({} if no session records an event:
+    device_events)."""
+    def run():
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+
+    fn()
+    torch.cuda.synchronize()
     return {e.key: e.self_device_time_total / reps / 1e3
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+            for e in device_events(run)[0]}
 
 
 def _elementwise_prep(ids, nrows):
@@ -222,7 +245,11 @@ def table_grad_split(gr, ids, nrows):
     the sort (radix_*) and the zero fill with the segmented sums (the fill
     alone beside it), from torch.profiler; the PyTorch route it replaced
     (elementwise prep, stable torch.sort), torch.zeros, and
-    zeros + index_add_ (one PyTorch call for the same sums)."""
+    zeros + index_add_ (one PyTorch call for the same sums). Where the
+    profiler records no device event (kernel_device_ms), the split is
+    taken from CUDA events instead: the sort alone (sort_ids, the same
+    radix passes), the fill with the sums as the whole call less the sort,
+    no fill alone; `split_by` says which."""
     keys = _elementwise_prep(ids, nrows)
     kept = keys < nrows                 # index_add_ takes no dropped id
     lib_ids, lib_g = keys[kept].long(), gr[kept]
@@ -236,18 +263,24 @@ def table_grad_split(gr, ids, nrows):
             0, lib_ids, lib_g)
 
     by_kernel = kernel_device_ms(whole)
-    sort = [ms for k, ms in by_kernel.items() if "radix_" in k]
-    fill = [ms for k, ms in by_kernel.items() if "zero_kernel" in k]
-    sums = [ms for k, ms in by_kernel.items() if "segment_kernel" in k]
-    if len(sort) < 2 or len(fill) != 1 or not sums:
-        raise RuntimeError(f"table_grad's kernels not found in the "
-                           f"profile: {sorted(by_kernel)}")
+    whole_ms = time_ms(whole)
+    if by_kernel:
+        sort = [ms for k, ms in by_kernel.items() if "radix_" in k]
+        fill = [ms for k, ms in by_kernel.items() if "zero_kernel" in k]
+        sums = [ms for k, ms in by_kernel.items() if "segment_kernel" in k]
+        if len(sort) < 2 or len(fill) != 1 or not sums:
+            raise RuntimeError(f"table_grad's kernels not found in the "
+                               f"profile: {sorted(by_kernel)}")
+        split = {"split_by": "torch.profiler", "sort_ms": sum(sort),
+                 "kernel_ms": fill[0] + sum(sums), "fill_ms": fill[0]}
+    else:
+        sort_ms = time_ms(lambda: scatter_cuda.sort_ids(ids, nrows))
+        split = {"split_by": "cuda events", "sort_ms": sort_ms,
+                 "kernel_ms": whole_ms - sort_ms, "fill_ms": None}
     return {
-        "whole_ms": time_ms(whole),
+        "whole_ms": whole_ms,
         "whole_host_incl_ms": host_incl_ms(whole),
-        "sort_ms": sum(sort),
-        "kernel_ms": fill[0] + sum(sums),
-        "fill_ms": fill[0],
+        **split,
         "torch_prep_ms": time_ms(lambda: _elementwise_prep(ids, nrows)),
         "torch_sort_ms": time_ms(lambda: torch.sort(keys, stable=True)),
         "torch_zeros_ms": time_ms(lambda: torch.zeros(
@@ -326,15 +359,20 @@ def arm_inputs(g, shape):
 def arm_bwd_split(emb, wk, q, vt, dout, alpha):
     """K6's device ms per call split by torch.profiler into its main kernel
     (arm1h_bwd_kernel), the ordered sum of the per-block partials
-    (sum_rows_kernel) and any other kernel of the call."""
+    (sum_rows_kernel) and any other kernel of the call; None for each
+    where the profiler records no device event (kernel_device_ms)."""
     by_kernel = kernel_device_ms(
         lambda: arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha))
+    if not by_kernel:
+        return {"split_by": None, "main_ms": None, "sum_rows_ms": None,
+                "other_ms": None}
     main = [ms for k, ms in by_kernel.items() if "arm1h_bwd_kernel" in k]
     sums = [ms for k, ms in by_kernel.items() if "sum_rows_kernel" in k]
     if len(main) != 1 or len(sums) != 1:
         raise RuntimeError(f"arm1h_bwd's kernels not found in the profile: "
                            f"{sorted(by_kernel)}")
-    return {"main_ms": main[0], "sum_rows_ms": sums[0],
+    return {"split_by": "torch.profiler", "main_ms": main[0],
+            "sum_rows_ms": sums[0],
             "other_ms": sum(by_kernel.values()) - main[0] - sums[0]}
 
 

@@ -1,5 +1,7 @@
-"""ARM-1h interaction (port of the fields-major path of
+"""ARM interactions (port of the fields-major paths of
 armnet_tpu/ops/interaction.py and of armnet_tpu/kernels/arm_pallas.py).
+
+ARM-1h:
 
   gates   = <emb @ wk, query> * d_k^-0.5        [B, F, O]
   sparse  = entmax_alpha(gates) over fields      (axis 1)
@@ -12,8 +14,15 @@ GEMMs, the entmax kernel, an einsum and exp. The fused one
 and its backward as one recompute kernel (kernels/arm_cuda.py); a CUDA
 tensor launches them, a CPU tensor takes their plain versions.
 
-Weights keep the JAX layout (wk [E, dk], query [O, dk], values [O, F]) so
-these functions take the same arguments as their JAX counterparts.
+Multi-head ARM (`arm_attention_multihead`, and GC-ARM's gates through
+`mh_gate_proj`) folds each head's bilinear and query into one [K*O, E]
+projection, so the gates come out as [B, F, K*O] with the channel
+k*O + o (k-major) and the entmax over fields (axis 1) runs on them as on
+ARM-1h's [B, F, O]; `kernels` never changes that path.
+
+Weights keep the JAX layout (wk [E, dk], query [O, dk], values [O, F];
+bilinear_w [K, E, dk], query [K, O, dk], values [K, O, F]) so these
+functions take the same arguments as their JAX counterparts.
 """
 
 import torch
@@ -22,7 +31,8 @@ from armnet_tpu_torch.kernels import arm_cuda
 from armnet_tpu_torch.kernels.config import use_fused_arm
 from armnet_tpu_torch.ops.entmax import pick, sparse_normalizer
 
-__all__ = ["arm1h_interaction", "arm1h_fused", "arm_exp_cross_fmajor"]
+__all__ = ["arm1h_interaction", "arm1h_fused", "arm_exp_cross_fmajor",
+           "mh_gate_proj", "arm_attention_multihead"]
 
 
 def arm1h_interaction(emb, wk, query, values, alpha, n_iter=50,
@@ -37,6 +47,25 @@ def arm1h_interaction(emb, wk, query, values, alpha, n_iter=50,
     gates = torch.matmul(keys, query.t()) * (d_k ** -0.5)      # [B, F, O]
     sparse = sparse_normalizer(alpha, axis=1, n_iter=n_iter)(gates)
     return arm_exp_cross_fmajor(emb, sparse * values.t()[None])
+
+
+def mh_gate_proj(bilinear_w, query):
+    """bilinear_w [K, E, dk], query [K, O, dk] -> the gate projection
+    [K*O, E]: m[k, o, x] = sum_y bilinear_w[k, x, y] * query[k, o, y]."""
+    nhead, nemb, _ = bilinear_w.shape
+    m = torch.einsum("kxy,koy->kox", bilinear_w, query)
+    return m.reshape(nhead * query.shape[1], nemb)
+
+
+def arm_attention_multihead(emb, bilinear_w, query, values, normalizer):
+    """Multi-head sparse field weights [B, F, K*O]: gates emb @ m^T scaled
+    by d_k^-0.5, `normalizer` over fields (axis 1), times values [K, O, F]
+    as [F, K*O]."""
+    d_k = bilinear_w.shape[-1]
+    m = mh_gate_proj(bilinear_w, query)
+    gates = torch.matmul(emb, m.t()) * (d_k ** -0.5)          # [B, F, K*O]
+    nhead, nhid, nfield = values.shape
+    return normalizer(gates) * values.reshape(nhead * nhid, nfield).t()[None]
 
 
 def arm_exp_cross_fmajor(emb, weight):

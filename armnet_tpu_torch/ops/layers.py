@@ -1,12 +1,15 @@
-"""Shared layers (port of the armnet_1h subset of armnet_tpu/ops/layers.py).
+"""Shared layers (port of the ARM/AFN/SA-GLU subset of
+armnet_tpu/ops/layers.py).
 
-  TorchLinear   nn.Linear with its default init, from a torch.Generator
+  TorchLinear   nn.Linear with its default init, from a torch.Generator;
+                bias-free with bias=False
   BatchNorm     torch BatchNorm over a given channel axis; in train mode
                 with masked batch statistics under batch_mask_scope
   Dropout       inverted dropout whose mask comes from the generator of
                 the active dropout_scope
   Embedding     value-scaled embedding gather -> [B, F, E]
   MLP           [Linear -> BatchNorm -> ReLU -> Dropout] * L -> Linear
+  SelfAttnLayer scaled dot-product self-attention over fields (SA-GLU)
 
 Parameters are created on the generator's device; move the model with
 `.to(device)` afterwards.
@@ -24,7 +27,7 @@ from armnet_tpu_torch.ops import initializers as init
 from armnet_tpu_torch.ops.embedding import embedding_bag
 
 __all__ = ["TorchLinear", "BatchNorm", "Dropout", "Embedding", "MLP",
-           "batch_mask_scope", "current_batch_mask", "dropout_scope"]
+           "SelfAttnLayer", "batch_mask_scope", "current_batch_mask", "dropout_scope"]
 
 # The train step enters batch_mask_scope around the forward so BatchNorm
 # computes MASKED batch statistics: the loader pads the final partial batch
@@ -62,14 +65,15 @@ def dropout_scope(generator):
 
 
 class TorchLinear(nn.Module):
-    """Dense layer; weight [out, in] (torch layout), default nn.Linear init."""
+    """Dense layer; weight [out, in] (torch layout), default nn.Linear init.
+    With bias=False it holds no bias and draws none."""
 
-    def __init__(self, in_features, out_features, generator):
+    def __init__(self, in_features, out_features, generator, bias=True):
         super().__init__()
         self.weight = nn.Parameter(init.torch_linear_uniform(
             (out_features, in_features), in_features, generator))
-        self.bias = nn.Parameter(init.torch_linear_uniform(
-            (out_features,), in_features, generator))
+        self.bias = (nn.Parameter(init.torch_linear_uniform(
+            (out_features,), in_features, generator)) if bias else None)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -188,3 +192,21 @@ class MLP(nn.Module):
         for linear, norm in zip(self.linears, self.norms):
             x = self.dropout(F.relu(norm(linear(x))))
         return self.linears[-1](x)
+
+
+class SelfAttnLayer(nn.Module):
+    """Self-attention over fields [B, F, E] -> ([B, F, E], attn [B, F, F]):
+    bias-free q, k, v (linears 0-2), scores q k^T / sqrt(E), softmax over
+    the last axis."""
+
+    def __init__(self, nemb, generator):
+        super().__init__()
+        self.linears = nn.ModuleList(
+            [TorchLinear(nemb, nemb, generator, bias=False)
+             for _ in range(3)])
+
+    def forward(self, x):
+        q, k, v = (linear(x) for linear in self.linears)
+        scores = torch.matmul(q, k.transpose(1, 2)) / math.sqrt(x.shape[-1])
+        attn = torch.softmax(scores, dim=-1)
+        return torch.matmul(attn, v), attn

@@ -23,7 +23,7 @@ import time
 import torch
 
 from armnet_tpu_torch import resolve_device
-from armnet_tpu_torch.models import create_model
+from armnet_tpu_torch.models import create_model, param_transform_for
 from armnet_tpu_torch.train.checkpoint import save_checkpoint
 from armnet_tpu_torch.train.step import (create_train_state, init_meters,
                                          make_eval_step, make_train_step,
@@ -109,8 +109,10 @@ class Trainer:
         _, _, self.metric_name = task_fns(self.task)
         # dropout masks come from a generator seeded from the run's seed
         generator = torch.Generator(self.device).manual_seed(seed + 7)
+        self.param_transform = param_transform_for(config.model)
         self.train_step = make_train_step(self.task, config.clip, generator,
-                                          config.debug_nans)
+                                          config.debug_nans,
+                                          self.param_transform)
         if config.debug_nans:
             logger.info("debug_nans enabled: a non-finite loss or gradient "
                         "stops training")
@@ -163,6 +165,12 @@ class Trainer:
             epoch_start = time.time()
             train_auc = self._train_epoch(epoch, epochs, eval_freq,
                                           report_freq)
+            if self.param_transform is not None:
+                # once per eval pass, as the JAX trainer does. It mutates
+                # the stored weights where the JAX trainer evaluates a
+                # transformed copy: the same values, since the transform
+                # is idempotent and the next train step applies it first
+                self.param_transform(self.state.model)
             valid_auc = self._run(epoch, epochs, 1, eval_freq, report_freq)
             test_auc = self._run(epoch, epochs, 2, eval_freq, report_freq)
 

@@ -10,6 +10,10 @@ table row gets a gradient (zero where the batch did not touch it) and
 Adam decays the moments of untouched rows, as optax does; sparse gradients
 and SparseAdam would not.
 
+A model with a stored-parameter mutation (models.param_transform_for:
+AFN's positive table) has it applied in place at the head of every step,
+before the forward, as the JAX step applies it to state.params.
+
 The quality metric (ROC-AUC or accuracy) is taken on the logits from before
 the update. Meters are tensors on the model's device, so a step never waits
 for the device; the loop reads them only at report and epoch boundaries.
@@ -108,14 +112,17 @@ def check_finite(loss, model, step):
 
 
 def make_train_step(task="binary", clip=1.0, generator=None,
-                    debug_nans=False):
+                    debug_nans=False, param_transform=None):
     """train_step(state, meters, batch) -> meters: forward, loss, backward,
     clamp, Adam; the metric on the pre-update logits. `generator` draws the
     dropout masks; with debug_nans the step raises before the update where
-    the loss or a gradient is not finite (check_finite)."""
+    the loss or a gradient is not finite (check_finite). `param_transform`
+    (model -> None, in place) runs first."""
     loss_fn, metric_fn, _ = task_fns(task)
 
     def train_step(state, meters, batch):
+        if param_transform is not None:
+            param_transform(state.model)
         state.optimizer.zero_grad(set_to_none=True)
         loss, logits = forward_loss(state.model, batch, loss_fn, generator)
         loss.backward()
@@ -134,7 +141,8 @@ def make_train_step(task="binary", clip=1.0, generator=None,
 
 def make_eval_step(task="binary"):
     """eval_step(state, meters, batch) -> meters: running BatchNorm
-    statistics, no dropout, no gradients."""
+    statistics, no dropout, no gradients. A stored-parameter mutation is
+    the caller's: the Trainer applies it once before each eval pass."""
     loss_fn, metric_fn, _ = task_fns(task)
 
     @torch.inference_mode()

@@ -119,7 +119,7 @@ def test_bridge_raises_on_leftover_missing_and_misshapen_leaves():
 
 def test_create_model_raises_for_models_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(ModelConfig(model="armnet"))
+        create_model(ModelConfig(model="dnn"))
     with pytest.raises(ValueError, match="unknown"):
         create_model(ModelConfig(model="bogus"))
 

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the entmax forward and backward, the table gradient and the fused ARM-1h
 forward and backward, and one train step on the card against the same step
-on the CPU, through the composed and the fused interaction.
+on the CPU, through the composed and the fused interaction; for armnet,
+gc_arm, sa_glu and afn the entmax kernels at their channel counts, eval
+logits and one train step against the CPU with the kernels it launches,
+and AFN's table gradient through its clamp-abs.
 
 Skipped where CUDA is absent. On a GPU machine, from the repository root:
 
@@ -345,6 +348,22 @@ def test_table_grad_counts_launches_and_rejects(cuda):
     assert scatter_cuda.LAUNCHES == before + 1
 
 
+@pytest.mark.parametrize("profiled", [True, False])
+def test_table_grad_split_with_and_without_profiler_events(cuda, profiled,
+                                                           monkeypatch):
+    from armnet_tpu_torch.kernels import bench
+
+    if not profiled:      # every profiler session empty: CUDA-event split
+        monkeypatch.setattr(bench, "kernel_device_ms", lambda fn: {})
+    gr, ids = _tg_case(cuda, 4096 * 39, 10, bench.CRITEO_NFEAT)
+    times = bench.table_grad_split(gr, ids.int(), bench.CRITEO_NFEAT)
+    assert times["split_by"] == ("torch.profiler" if profiled
+                                 else "cuda events")
+    assert 0 < times["sort_ms"] < times["whole_ms"]
+    assert 0 < times["kernel_ms"] < times["whole_ms"]
+    assert (times["fill_ms"] > 0) if profiled else times["fill_ms"] is None
+
+
 def _u_kappa(model, batch):
     """u * the largest |mean| / std over arm_bn's input channels: one f32
     rounding of exp(z), relative to the spread arm_bn divides by."""
@@ -534,3 +553,155 @@ def test_arm1h_plan_past_40_fields(cuda, alpha):
     assert arm_cuda.bwd_blocks_per_sm(43, 33, 20, 130, alpha) >= 1
     assert arm_cuda.fwd_blocks_per_sm(500, 10, 10, 128, alpha) == 0
     assert arm_cuda.bwd_blocks_per_sm(200, 10, 10, 128, alpha) == 0
+
+
+# the channel counts C = nattn_head * h of the multi-head presets (cr_armnet
+# 256, db_armnet 32, db_armnet+ 512, frappe_armnet+ 16, ml_armnet+ 8) and a
+# ragged 6, which takes the backward's per-thread loads (C % 4 != 0), at
+# the Criteo and Diabetes130 field counts
+@pytest.mark.parametrize("c", [6, 8, 16, 32, 256, 512])
+@pytest.mark.parametrize("f", [39, 43])
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_entmax_kernels_at_multihead_channels(cuda, alpha, f, c):
+    """K2 and K4 on [B, F, C] over the fields (axis 1), against their
+    plain versions at the tolerances of the tests above."""
+    g = torch.Generator(device=cuda).manual_seed(c + f)
+    x = torch.randn((67, f, c), generator=g, device=cuda) * 3.0
+    yk = entmax_cuda.entmax_kernel(x, alpha, 1)
+    yp = entmax_cuda.entmax_plain(x, alpha, 1)
+    dy = torch.randn((67, f, c), generator=g, device=cuda)
+    dk = entmax_cuda.entmax_bwd_kernel(yk, dy, alpha, 1)
+    dp = entmax_cuda.entmax_bwd_plain(yk, dy, alpha, 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(yk, yp, rtol=0,
+                               atol=1e-5 if alpha > 2 else 5e-6)
+    torch.testing.assert_close(dk, dp, rtol=0, atol=2e-5)
+
+
+def _zoo_config(model, ensemble=False, **kw):
+    base = dict(model=model, nfeat=1000, nfield=39, nemb=10, h=16,
+                nattn_head=4, mlp_nlayer=2, mlp_nhid=64, alpha=2.0,
+                ensemble=ensemble, dnn_nlayer=2, dnn_nhid=64)
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def _zoo_batch(rows=256, nfeat=1000, nfield=39):
+    rng = np.random.RandomState(0)
+    b = {"id": torch.from_numpy(rng.randint(0, nfeat, (rows, nfield))),
+         "value": torch.from_numpy(rng.rand(rows, nfield).astype(np.float32)),
+         "y": torch.from_numpy((rng.rand(rows) < 0.3).astype(np.float32)),
+         "mask": torch.ones(rows)}
+    b["mask"][rows - 56:] = 0.0
+    return b
+
+
+ZOO = ["armnet", "gc_arm", "sa_glu", "afn"]
+
+
+@pytest.mark.parametrize("ensemble", [False, True])
+@pytest.mark.parametrize("model", ZOO)
+def test_zoo_gpu_logits_match_cpu(cuda, model, ensemble):
+    cfg = _zoo_config(model, ensemble, alpha=1.7)
+    net = create_model(cfg, seed=1).eval()
+    batch = {k: v for k, v in _zoo_batch().items() if k in ("id", "value")}
+    with torch.inference_mode():
+        lc = net(batch)
+        lg = net.to(cuda)({k: v.to(cuda) for k, v in batch.items()}).cpu()
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kernels", ["auto", "pallas-fused"])
+@pytest.mark.parametrize("ensemble", [False, True])
+@pytest.mark.parametrize("model", ZOO)
+def test_zoo_train_step_gpu_matches_cpu(cuda, model, ensemble, kernels):
+    """One masked train-mode step of each new model from the same weights
+    (AFN after its positivity transform) on the card, on the card with the
+    plain versions swapped in, and on the CPU with the card's outputs of
+    the BatchNorms over channel axis 1 pinned (chip_smoke.bn_tap: one
+    rounding of exp(z) that such a BatchNorm magnifies moves the ReLUs
+    below it across 0, and unpinned steps of armnet then differ by
+    percents; ROADMAP.md §3). On the card the step launches K2 and K4 once
+    for armnet and gc_arm and never for sa_glu and afn, K7 once (twice
+    with the ensemble), and no K5 or K6 under either kernel choice. Held,
+    as chip_smoke.gpu_vs_cpu_step holds it: the loss to 1e-5 relative,
+    each BatchNorm's input to 1e-5 of its norm, and every clamped gradient
+    norm-wise to atol 1e-6 plus rtol max(1e-4, 16 u kappa) against the
+    pinned CPU step, and plus KERNELS_VS_PLAIN_RTOL against the plain
+    versions on the card."""
+    from armnet_tpu_torch.models import param_transform_for
+    from chip_smoke import (KERNELS_VS_PLAIN_RTOL, bn_tap,
+                            plain_versions_on_card, u_kappa)
+
+    cfg = _zoo_config(model, ensemble)
+    batch = _zoo_batch()
+    transform = param_transform_for(model)
+
+    def step(dev, tap):
+        net = create_model(cfg, seed=1, kernels=kernels).to(dev)
+        if transform is not None:
+            transform(net)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with bn_tap(net, *tap):
+            loss, _ = forward_loss(net, b)
+        loss.backward()
+        clamp_grads(net.parameters(), 1.0)
+        return (loss.item(), u_kappa(tap[0]),
+                {n: p.grad.cpu() for n, p in net.named_parameters()})
+
+    counts = (entmax_cuda.LAUNCHES, entmax_cuda.BWD_LAUNCHES,
+              scatter_cuda.LAUNCHES, arm_cuda.LAUNCHES, arm_cuda.BWD_LAUNCHES)
+    card_in, card_out = {}, {}
+    lg, cond, gg = step(cuda, (card_in, card_out))
+    after = (entmax_cuda.LAUNCHES, entmax_cuda.BWD_LAUNCHES,
+             scatter_cuda.LAUNCHES, arm_cuda.LAUNCHES, arm_cuda.BWD_LAUNCHES)
+    arm = int(model in ("armnet", "gc_arm"))
+    assert [a - c for a, c in zip(after, counts)] == [
+        arm, arm, 1 + int(ensemble), 0, 0]
+    with plain_versions_on_card():
+        lq, _, gq = step(cuda, ({},))
+    cpu_in = {}
+    lc, _, gc = step("cpu", (cpu_in, None, card_out))
+    assert set(cpu_in) == set(card_out) == {
+        "armnet": {"arm_bn"}, "gc_arm": {"emb_bn", "arm_bn"},
+        "sa_glu": set(), "afn": {"emb_bn", "afn_bn"}}[model]
+    for name, x in card_in.items():
+        assert float((x - cpu_in[name]).norm()) <= 1e-5 * float(x.norm())
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(lg - lq) <= 1e-5 * abs(lq)
+    rtol = max(1e-4, 16 * cond)
+    for name, ref in gc.items():
+        for other, tol in ((ref, rtol), (gq[name], KERNELS_VS_PLAIN_RTOL)):
+            gap = float((gg[name] - other).norm())
+            assert gap <= (1e-6 * ref.numel() ** 0.5
+                           + tol * float(other.norm())), (name, gap, tol)
+
+
+def test_afn_table_gradient_through_where_abs(cuda):
+    """AFN's gathered rows come from where(|W| >= 1e-4, |W|, 1e-4), not from
+    the leaf: K7's dense gradient flows on through where and abs to W. On a
+    table with negative entries (the sign flips the gradient), entries
+    under the clamp (gradient 0) and at it (gradient 1), untransformed,
+    the table's gradient on the card is 0 where the CPU's is and matches
+    it norm-wise (rtol 1e-4, atol 1e-6), with one K7 launch."""
+    cfg = _zoo_config("afn", nfeat=300)
+    batch = _zoo_batch(nfeat=300)
+    grads = []
+    for dev in ("cpu", cuda):
+        net = create_model(cfg, seed=3).to(dev)
+        with torch.no_grad():
+            w = net.embedding.view(-1)
+            w[0::7] *= -1.0
+            w[1::7] = 5e-5
+            w[2::7] = 1e-4
+        b = {k: v.to(dev) for k, v in batch.items()}
+        before = scatter_cuda.LAUNCHES
+        loss, _ = forward_loss(net, b)
+        loss.backward()
+        if dev != "cpu":
+            assert scatter_cuda.LAUNCHES == before + 1
+        grads.append(net.embedding.grad.cpu())
+    gc, gg = grads
+    assert bool((gc.view(-1)[1::7] == 0).all())
+    assert torch.equal(gg == 0, gc == 0) and float(gc.abs().max()) > 0
+    gap = float((gg - gc).norm())
+    assert gap <= 1e-6 * gc.numel() ** 0.5 + 1e-4 * float(gc.norm()), gap

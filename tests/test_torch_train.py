@@ -104,10 +104,11 @@ def _nest(flat):
     return out
 
 
-def init_pair(kw, seed, kernels="auto"):
+def init_pair(kw, seed, kernels="auto", tweak=None):
     """(JAX model, JAX params, JAX batch_stats, port model under
     `kernels`) from one JAX init with embeddings widened to [-0.5, 0.5]
-    (so the exponential neurons leave 1) and random running statistics."""
+    (so the exponential neurons leave 1) and random running statistics;
+    `tweak(flat, rng)` may then change the flat numpy leaves in place."""
     jm = jax_create_model(JaxModelConfig(**kw))
     b0 = make_batches(1, seed, nfield=kw["nfield"])[0]
     v = jm.init(jax.random.PRNGKey(seed),
@@ -121,6 +122,8 @@ def init_pair(kw, seed, kernels="auto"):
             arr[...] = rng.normal(0.0, 0.3, arr.shape)
         elif key.endswith("/var"):
             arr[...] = rng.uniform(0.5, 1.5, arr.shape)
+    if tweak is not None:
+        tweak(flat, rng)
     nested = _nest(flat)
     cfg = ModelConfig(**kw)
     model = create_model(cfg, kernels=kernels)
