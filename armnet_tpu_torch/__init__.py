@@ -6,10 +6,10 @@ find; the JAX package stays the reference the port is tested against.
 Layers (bottom-up):
   kernels/   hand-written CUDA kernels (csrc/), their builder and wrappers,
              and the plain PyTorch version of each
-  ops/       embedding gather, layers, entmax dispatch, ARM interaction,
-             each differentiable (autograd Functions over the kernels)
-  models/    armnet_1h, armnet, gc_arm, sa_glu, afn (the other zoo names
-             are not ported yet)
+  ops/       embedding gather, layers, entmax dispatch, ARM and zoo
+             interactions, each differentiable (autograd Functions over
+             the kernels)
+  models/    every model of the JAX zoo (models.MODEL_NAMES)
   data/      libsvm parse, fixed-shape batches, the shuffled train iterator
   train/     losses and metrics, the train/eval step, the epoch loop with
              early stopping, checkpoints, and the training CLI

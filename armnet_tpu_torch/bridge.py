@@ -4,14 +4,22 @@
 'batch_stats/arm_bn/BatchNorm_0/mean', ...) to numpy arrays. The renames:
 
   TorchLinear_i/kernel [in, out]   -> linears.i.weight [out, in] (transposed)
+  <linear>/kernel [in, out]        -> <linear>.weight [out, in] (a TorchLinear
+                                      named in the JAX model: dcn's `w`,
+                                      afm's attn_*, cin's `affine`)
   BatchNorm_i/BatchNorm_0/...      -> norms.i.{weight, bias, running_*}
   <bn>/BatchNorm_0/scale|mean|var  -> <bn>.weight|running_mean|running_var
-  <table>/embedding [R*E] or [R,E] -> <table>.weight [R, E]
+  <table>/embedding [R*E] or [R,E] -> <table>.weight [R, E] (HOFM's E is
+                                      nemb * (k - 1))
   embedding (a top-level table, AFN)  -> embedding [R, E]
+  linear/weight [R] or [R, 1]      -> linear.weight [R, 1] (FeaturesLinear,
+                                      flat in the JAX tree past 512 rows)
 
-Every other leaf (bilinear_w, query, values, ens_kernel, ...) keeps its
-name and layout. Raises on a JAX leaf it does not consume and on a port
-parameter or buffer it does not fill.
+Every other leaf (bilinear_w, query, values, ens_kernel, KPNN's kernel,
+GAT's W and a, DCN's w_l and b_l, CIN's filter_k, ...) keeps its name and
+layout. Raises on a JAX leaf it does not consume, on a port parameter or
+buffer it does not fill, and on a leaf of another shape than the port's
+(a table in either of its JAX layouts).
 
 `params_from_jax` carries a tree shaped like `params` alone (gradients,
 Adam moments) to a {port parameter name: tensor} dict with the same renames.
@@ -54,10 +62,12 @@ def _port_key(jax_key):
             path += ["norms", m.split("_")[1]]
         else:
             path.append(m)
-    if leaf == "kernel" and mods and mods[-1].startswith("TorchLinear_"):
+    if leaf == "kernel" and mods:
         return ".".join(path + ["weight"]), "transpose"
     if leaf == "embedding":
         return ".".join(path + ["weight"]) if path else leaf, "table"
+    if leaf == "weight" and mods == ["linear"]:
+        return "linear.weight", "table"
     return ".".join(path + [_LEAF.get(leaf, leaf)]), "copy"
 
 
@@ -73,8 +83,9 @@ def _convert(flat, cfg, expected):
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
         if kind == "transpose":
             t = t.t().contiguous()
-        elif kind == "table":
-            t = t.reshape(-1, cfg.nemb)
+        elif kind == "table" and t.ndim == 1 and (
+                t.numel() == expected[key].numel()):
+            t = t.reshape(expected[key].shape)        # the flat JAX layout
         if tuple(t.shape) != tuple(expected[key].shape):
             raise ValueError(f"{jax_key!r} -> {key!r}: shape {tuple(t.shape)}"
                              f" != port {tuple(expected[key].shape)}")

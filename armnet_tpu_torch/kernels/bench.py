@@ -3,7 +3,8 @@ shapes and every alpha, the entmax backward (K3/K4) at the serving shapes,
 the Diabetes130 step and columns past the forward's register buckets,
 every alpha, beside its bound, with its registers, spills and blocks per
 SM, the table gradient (K7) on a Criteo batch with
-uniform and Zipf-skewed ids and all ids equal, split into its sort and its
+uniform and Zipf-skewed ids and all ids equal (and on the uniform batch at
+the zoo's widths E = 1 and 20), split into its sort and its
 fill and segmented sums beside the PyTorch route it replaced and
 `zeros + index_add_`, the fused ARM-1h forward and backward (K5/K6) at the
 Criteo and Frappe steps (and Frappe at nemb 100) and every alpha beside
@@ -63,6 +64,9 @@ SEED = 2025
 # YCSB", SoCC 2010), 1.5 the power-law ids of the JAX package's own tests
 # (tests/test_parallel.py); neither is measured on Criteo's ids
 ZIPF_EXPONENTS = (0.99, 1.5)
+# the table gradient's widths beside nemb 10: FeaturesLinear's weight (E =
+# 1) and HOFM's table at the CLI defaults (E = nemb * (k - 1) = 20)
+ZOO_WIDTHS = (1, 20)
 HOLD_CYCLES = 2_000_000   # ~1 ms of the card's clock: longer than any enqueue
 PROFILE_TRIES = 3
 EMPTY_SESSIONS = 0        # profiler sessions that recorded no device event
@@ -292,8 +296,11 @@ def table_grad_split(gr, ids, nrows):
 
 def bench_table_grad():
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    e, nrows = 10, CRITEO_NFEAT
-    for name, ids in table_grad_cases().items():
+    nrows = CRITEO_NFEAT
+    cases = table_grad_cases()
+    runs = [(name, ids, 10) for name, ids in cases.items()]
+    runs += [("criteo_batch", cases["criteo_batch"], e) for e in ZOO_WIDTHS]
+    for name, ids, e in runs:
         gr = torch.randn((ids.numel(), e), generator=g, device="cuda")
         yield {"table_grad": name, "n": ids.numel(), "e": e, "nrows": nrows,
                **table_grad_split(gr, ids, nrows)}

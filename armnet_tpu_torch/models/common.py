@@ -6,7 +6,8 @@ from torch import nn
 from armnet_tpu_torch.ops import initializers as init
 from armnet_tpu_torch.ops.layers import MLP, Embedding
 
-__all__ = ["split_batch", "squeeze_logits", "DeepEnsemble", "VALUE_CLAMP"]
+__all__ = ["split_batch", "squeeze_logits", "add_first_order", "DeepEnsemble",
+           "VALUE_CLAMP"]
 
 # The ARM/AFN family clamps input values into [1e-3, 1] so the exp/log
 # interactions stay bounded (reference armnet_1h.py:81).
@@ -21,6 +22,12 @@ def split_batch(batch):
 def squeeze_logits(y):
     """[B, 1] -> [B] (the binary head); a [B, C] head is returned as is."""
     return y.squeeze(-1) if y.ndim == 2 and y.shape[-1] == 1 else y
+
+
+def add_first_order(y_lin, y_deep):
+    """The first-order logit [B] plus the deep head: a [B] head elementwise,
+    a [B, C] head with the first-order logit broadcast over the classes."""
+    return y_lin + y_deep if y_deep.ndim == 1 else y_lin[:, None] + y_deep
 
 
 class DeepEnsemble(nn.Module):

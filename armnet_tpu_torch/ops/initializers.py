@@ -5,6 +5,8 @@ torch.Generator and returns a new float32 tensor on the generator's device.
   * xavier_uniform: torch.nn.init.xavier_uniform_ with gain, including
     torch's fans for >2-D shapes (fan_in = shape[1]*prod(shape[2:]),
     fan_out = shape[0]*prod(shape[2:])).
+  * xavier_uniform_stacked: H independent xavier_uniform_ matrices stacked
+    on leading axes ([H, in, out]), fans from the trailing two dims only.
   * torch_linear_uniform: nn.Linear's default, U(±1/sqrt(fan_in)) for both
     weight and bias.
 """
@@ -13,8 +15,8 @@ import math
 
 import torch
 
-__all__ = ["xavier_uniform", "torch_linear_uniform", "normal_unit", "zeros",
-           "ones", "constant"]
+__all__ = ["xavier_uniform", "xavier_uniform_stacked", "torch_linear_uniform",
+           "normal_unit", "zeros", "ones", "constant"]
 
 
 def _torch_fans(shape):
@@ -31,6 +33,17 @@ def _uniform(shape, bound, generator):
 
 def xavier_uniform(shape, generator, gain=1.0):
     fan_in, fan_out = _torch_fans(tuple(shape))
+    return _uniform(shape, gain * math.sqrt(6.0 / (fan_in + fan_out)),
+                    generator)
+
+
+def xavier_uniform_stacked(shape, generator, gain=1.0):
+    """Per-matrix xavier_uniform_ of a leading-stacked [..., in, out] shape
+    (GAT's per-head W): torch's fans over the whole shape would fold the
+    heads into both fans and under-scale every entry by sqrt(H)."""
+    if len(shape) < 2:
+        raise ValueError(f"xavier init needs >=2 dims, got {shape}")
+    fan_in, fan_out = shape[-2], shape[-1]
     return _uniform(shape, gain * math.sqrt(6.0 / (fan_in + fan_out)),
                     generator)
 

@@ -1,5 +1,10 @@
-"""ARM interactions (port of the fields-major paths of
-armnet_tpu/ops/interaction.py and of armnet_tpu/kernels/arm_pallas.py).
+"""Feature interactions (port of the fields-major ARM paths and the zoo's
+interactions of armnet_tpu/ops/interaction.py, and of
+armnet_tpu/kernels/arm_pallas.py).
+
+Zoo interactions, plain PyTorch as in the JAX package (no Pallas kernel
+there): `anova_kernel` (HOFM), `cross_layer` (DCN),
+`compressed_interaction_step` (CIN / xDeepFM).
 
 ARM-1h:
 
@@ -32,7 +37,8 @@ from armnet_tpu_torch.kernels.config import use_fused_arm
 from armnet_tpu_torch.ops.entmax import pick, sparse_normalizer
 
 __all__ = ["arm1h_interaction", "arm1h_fused", "arm_exp_cross_fmajor",
-           "mh_gate_proj", "arm_attention_multihead"]
+           "mh_gate_proj", "arm_attention_multihead", "anova_kernel",
+           "cross_layer", "compressed_interaction_step"]
 
 
 def arm1h_interaction(emb, wk, query, values, alpha, n_iter=50,
@@ -71,6 +77,34 @@ def arm_attention_multihead(emb, bilinear_w, query, values, normalizer):
 def arm_exp_cross_fmajor(emb, weight):
     """emb [B, F, E], weight [B, F, C] -> exp(sum_f w * e) [B, C, E]."""
     return torch.exp(torch.einsum("bfe,bfc->bce", emb, weight))
+
+
+def anova_kernel(x, order):
+    """The order-`order` ANOVA kernel of x [B, F, E] -> [B], by the cumsum
+    dynamic program over fields: after step t, a[:, j] sums every t-way
+    product of the fields before j (the reference HOFM's recurrence)."""
+    bsz, _, nemb = x.shape
+    a = torch.ones((bsz, x.shape[1] + 1, nemb), dtype=x.dtype,
+                   device=x.device)
+    for t in range(order):
+        upd = x[:, t:, :] * a[:, t:-1, :]
+        a = torch.cumsum(torch.cat([x.new_zeros((bsz, t + 1, nemb)), upd],
+                                   dim=1), dim=1)
+    return a[:, -1, :].sum(-1)
+
+
+def cross_layer(x0, x, w, b):
+    """One DCN cross layer: x0 * (x @ w) + b + x, w [in, 1], b [in]."""
+    return x0 * torch.matmul(x, w) + b + x
+
+
+def compressed_interaction_step(x0, xk, filt):
+    """One CIN layer: x0 [B, F, E], xk [B, C, E], filt [F*C, nfilter] ->
+    relu of the 1x1 convolution over the F*C channels of the outer product
+    x0[:, f] * xk[:, c] -> [B, nfilter, E]."""
+    b, _, e = x0.shape
+    h = (x0[:, :, None, :] * xk[:, None, :, :]).reshape(b, -1, e)
+    return torch.relu(torch.matmul(filt.t(), h))
 
 
 class _ARM1hFused(torch.autograd.Function):

@@ -1,5 +1,4 @@
-"""Shared layers (port of the ARM/AFN/SA-GLU subset of
-armnet_tpu/ops/layers.py).
+"""Shared layers (port of armnet_tpu/ops/layers.py).
 
   TorchLinear   nn.Linear with its default init, from a torch.Generator;
                 bias-free with bias=False
@@ -8,8 +7,13 @@ armnet_tpu/ops/layers.py).
   Dropout       inverted dropout whose mask comes from the generator of
                 the active dropout_scope
   Embedding     value-scaled embedding gather -> [B, F, E]
+  FeaturesLinear  first-order term: a per-feature scalar weight times the
+                value, summed over fields, plus a bias -> [B]
+  fm_pool       0.5 * ((sum_f e)^2 - sum_f e^2) FM pooling
   MLP           [Linear -> BatchNorm -> ReLU -> Dropout] * L -> Linear
   SelfAttnLayer scaled dot-product self-attention over fields (SA-GLU)
+  MultiHeadAttention  multi-head attention with residual + LayerNorm
+  triu_indices / all_pair_indices / normalize_adj helpers
 
 Parameters are created on the generator's device; move the model with
 `.to(device)` afterwards.
@@ -26,8 +30,11 @@ from torch import nn
 from armnet_tpu_torch.ops import initializers as init
 from armnet_tpu_torch.ops.embedding import embedding_bag
 
-__all__ = ["TorchLinear", "BatchNorm", "Dropout", "Embedding", "MLP",
-           "SelfAttnLayer", "batch_mask_scope", "current_batch_mask", "dropout_scope"]
+__all__ = ["TorchLinear", "BatchNorm", "Dropout", "Embedding",
+           "FeaturesLinear", "fm_pool", "MLP", "SelfAttnLayer",
+           "MultiHeadAttention", "triu_indices", "all_pair_indices",
+           "normalize_adj", "batch_mask_scope", "current_batch_mask",
+           "dropout_scope"]
 
 # The train step enters batch_mask_scope around the forward so BatchNorm
 # computes MASKED batch statistics: the loader pads the final partial batch
@@ -62,6 +69,30 @@ def dropout_scope(generator):
         yield
     finally:
         _scope.generator = prev
+
+
+def triu_indices(n, diag_offset=1, device=None):
+    """(i, j) long index tensors of the strict upper triangle of an (n, n)
+    grid, row-major (numpy's np.triu_indices order)."""
+    i, j = torch.triu_indices(n, n, diag_offset, device=device)
+    return i, j
+
+
+def all_pair_indices(n, device=None):
+    """(i, j) long index tensors of all n^2 ordered pairs, i-major."""
+    idx = torch.arange(n, device=device)
+    return idx.repeat_interleave(n), idx.repeat(n)
+
+
+def normalize_adj(adj):
+    """Symmetric degree normalization D^-1/2 A D^-1/2 in the reference's
+    form (A @ D^-1/2, transposed, @ D^-1/2); a row that sums to 0 gets a
+    degree factor of 0."""
+    rowsum = adj.sum(-1)
+    d_inv_sqrt = torch.where(rowsum > 0,
+                             torch.rsqrt(torch.clamp_min(rowsum, 1e-12)),
+                             torch.zeros_like(rowsum))
+    return (adj * d_inv_sqrt[None, :]).t() * d_inv_sqrt[None, :]
 
 
 class TorchLinear(nn.Module):
@@ -172,6 +203,32 @@ class Embedding(nn.Module):
         return embedding_bag(self.weight, ids, values)
 
 
+class FeaturesLinear(nn.Module):
+    """First-order term [B]: weight [nfeat, 1] N(0, 1) (nn.Embedding's
+    default, which the reference never re-inits; not xavier) gathered and
+    value-scaled by embedding_bag, so its gradient is the table-gradient
+    kernel at E = 1 on the card; summed over fields plus a zero-init bias
+    [1]."""
+
+    def __init__(self, nfeat, generator):
+        super().__init__()
+        self.weight = nn.Parameter(init.normal_unit((nfeat, 1), generator))
+        self.bias = nn.Parameter(init.zeros((1,), generator.device))
+
+    def forward(self, ids, values):
+        w = embedding_bag(self.weight, ids, values)            # [B, F, 1]
+        return w[..., 0].sum(1) + self.bias[0]
+
+
+def fm_pool(x, reduce_dim=True):
+    """FM second-order pooling over the field axis of [B, F, E]: [B], or
+    [B, E] with reduce_dim=False."""
+    fm = x.sum(1).square() - x.square().sum(1)                 # [B, E]
+    if reduce_dim:
+        fm = fm.sum(1)
+    return 0.5 * fm
+
+
 class MLP(nn.Module):
     """nlayers x [Linear -> BatchNorm -> ReLU -> Dropout] -> Linear(noutput);
     nlayers == 0 is a single Linear."""
@@ -210,3 +267,35 @@ class SelfAttnLayer(nn.Module):
         scores = torch.matmul(q, k.transpose(1, 2)) / math.sqrt(x.shape[-1])
         attn = torch.softmax(scores, dim=-1)
         return torch.matmul(attn, v), attn
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention over [B, L, ninput] with a residual and a
+    LayerNorm (eps 1e-6): bias-free q, k, v and output projections
+    (linears 0-3), scores scaled by n_k^-0.5, -1e9 where mask == 0 (mask
+    [B, L, L] or broadcastable to it, shared by the heads), dropout on the
+    projected output. Returns (y [B, L, ninput], attn [B, H, L, L]). No zoo
+    model uses it; it is layer API, as in the JAX package."""
+
+    def __init__(self, ninput, nhead, n_k, n_v, dropout, generator):
+        super().__init__()
+        self.nhead, self.n_k, self.n_v = nhead, n_k, n_v
+        self.linears = nn.ModuleList(
+            [TorchLinear(ninput, nhead * n, generator, bias=False)
+             for n in (n_k, n_k, n_v)]
+            + [TorchLinear(nhead * n_v, ninput, generator, bias=False)])
+        self.layer_norm = nn.LayerNorm(ninput, eps=1e-6,
+                                       device=generator.device)
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x, mask=None):
+        bsz, seq_len, _ = x.shape
+        q, k, v = (lin(x).reshape(bsz, seq_len, self.nhead, -1).transpose(1, 2)
+                   for lin in self.linears[:3])
+        attn = torch.matmul(q / math.sqrt(self.n_k), k.transpose(2, 3))
+        if mask is not None:
+            attn = attn.masked_fill(mask.unsqueeze(1) == 0, -1e9)
+        attn = torch.softmax(attn, dim=-1)
+        y = torch.matmul(attn, v).transpose(1, 2).reshape(bsz, seq_len, -1)
+        y = self.dropout(self.linears[3](y)) + x
+        return self.layer_norm(y), attn

@@ -78,8 +78,9 @@ def build_arg_parser():
                    help="exp name for log & checkpoint")
     # model config (reference-compatible names)
     p.add_argument("--model", default="armnet", type=str,
-                   help="model type (ported: afn, armnet, armnet_1h, "
-                        "gc_arm, sa_glu)")
+                   help="model type: lr fm hofm afm dcn cin afn armnet "
+                        "armnet_1h dnn gcn gat wd ipnn kpnn nfm dfm dcn+ "
+                        "xdfm gc_arm sa_glu")
     p.add_argument("--nfeat", type=int, default=d.nfeat,
                    help="the number of features")
     p.add_argument("--nfield", type=int, default=d.nfield,

@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the entmax forward and backward, the table gradient and the fused ARM-1h
-forward and backward, and one train step on the card against the same step
-on the CPU, through the composed and the fused interaction; for armnet,
-gc_arm, sa_glu and afn the entmax kernels at their channel counts, eval
-logits and one train step against the CPU with the kernels it launches,
-and AFN's table gradient through its clamp-abs.
+the entmax forward and backward, the table gradient (also at the zoo's
+widths E = 1 and 20 into 2.1M rows) and the fused ARM-1h forward and
+backward, and one train step on the card against the same step on the
+CPU, through the composed and the fused interaction; the entmax kernels at
+the multi-head channel counts; for every other zoo model eval logits and
+one train step against the CPU with the kernels it launches, and AFN's
+table gradient through its clamp-abs.
 
 Skipped where CUDA is absent. On a GPU machine, from the repository root:
 
@@ -255,6 +256,8 @@ def _tg_case(cuda, n, e, nrows, lo=0, hi=None, seed=0):
     (400, 4, 700, -1400, 1400),         # ids outside [-nrows, nrows) drop
     (500, 1, 16999, 0, None),           # e = 1
     (0, 10, 50, 0, None),               # no update at all
+    (4096 * 39, 1, 2100000, 0, None),   # FeaturesLinear at Criteo geometry
+    (4096 * 39, 20, 2100000, 0, None),  # HOFM's table, nemb * (k - 1) = 20
 ])
 def test_table_grad_kernel_matches_plain(cuda, n, e, nrows, lo, hi):
     """Against index_add_ on a CPU copy (the kernel's summation order) at
@@ -597,10 +600,14 @@ def _zoo_batch(rows=256, nfeat=1000, nfield=39):
 
 
 ZOO = ["armnet", "gc_arm", "sa_glu", "afn"]
+# the models without a DNN ensemble: the rest of the zoo
+PLAIN_ZOO = ["lr", "fm", "hofm", "afm", "nfm", "dnn", "wd", "dfm", "ipnn",
+             "kpnn", "dcn", "dcn+", "cin", "xdfm", "gcn", "gat"]
+ZOO_CASES = ([(m, e) for m in ZOO for e in (False, True)]
+             + [(m, False) for m in PLAIN_ZOO])
 
 
-@pytest.mark.parametrize("ensemble", [False, True])
-@pytest.mark.parametrize("model", ZOO)
+@pytest.mark.parametrize("model,ensemble", ZOO_CASES)
 def test_zoo_gpu_logits_match_cpu(cuda, model, ensemble):
     cfg = _zoo_config(model, ensemble, alpha=1.7)
     net = create_model(cfg, seed=1).eval()
@@ -612,26 +619,33 @@ def test_zoo_gpu_logits_match_cpu(cuda, model, ensemble):
 
 
 @pytest.mark.parametrize("kernels", ["auto", "pallas-fused"])
-@pytest.mark.parametrize("ensemble", [False, True])
-@pytest.mark.parametrize("model", ZOO)
+@pytest.mark.parametrize("model,ensemble", ZOO_CASES)
 def test_zoo_train_step_gpu_matches_cpu(cuda, model, ensemble, kernels):
-    """One masked train-mode step of each new model from the same weights
+    """One masked train-mode step of each zoo model from the same weights
     (AFN after its positivity transform) on the card, on the card with the
     plain versions swapped in, and on the CPU with the card's outputs of
-    the BatchNorms over channel axis 1 pinned (chip_smoke.bn_tap: one
-    rounding of exp(z) that such a BatchNorm magnifies moves the ReLUs
-    below it across 0, and unpinned steps of armnet then differ by
-    percents; ROADMAP.md §3). On the card the step launches K2 and K4 once
-    for armnet and gc_arm and never for sa_glu and afn, K7 once (twice
-    with the ensemble), and no K5 or K6 under either kernel choice. Held,
-    as chip_smoke.gpu_vs_cpu_step holds it: the loss to 1e-5 relative,
-    each BatchNorm's input to 1e-5 of its norm, and every clamped gradient
-    norm-wise to atol 1e-6 plus rtol max(1e-4, 16 u kappa) against the
-    pinned CPU step, and plus KERNELS_VS_PLAIN_RTOL against the plain
-    versions on the card."""
+    the BatchNorms of chip_smoke.pinned_norms pinned (bn_tap): those over
+    channel axis 1, where one rounding of exp(z) that such a BatchNorm
+    magnifies moves the ReLUs below it across 0, and unpinned steps of
+    armnet then differ by percents (ROADMAP.md §3); and GCN's MLP
+    BatchNorms, which do the same. The other models' steps are not
+    pinned. On the card the step launches K2 and K4 once for armnet and
+    gc_arm and never for the others, K7 once per table (chip_smoke.tables:
+    twice where a FeaturesLinear sits beside the embedding, once more with
+    the ensemble), and no K5 or K6 under either kernel choice. Held, as
+    chip_smoke.gpu_vs_cpu_step holds it: the loss to 1e-5 relative, each
+    pinned BatchNorm's input to 1e-5 of its norm, and every clamped
+    gradient norm-wise to atol 1e-6 plus rtol max(1e-4, 16 u kappa)
+    against the CPU step, and plus KERNELS_VS_PLAIN_RTOL against the plain
+    versions on the card. GCN's hidden MLP biases, which a BatchNorm
+    follows (a gradient of 0 in exact arithmetic), are held at atol 4e-6
+    per element: on an H100 they read 8.0e-6 apart over 64 elements,
+    norm-wise, against the CPU, at atol 1e-6 (its graph convolutions over
+    the all-ones adjacency give the MLP fields of one value, whose mean
+    its BatchNorm takes out)."""
     from armnet_tpu_torch.models import param_transform_for
-    from chip_smoke import (KERNELS_VS_PLAIN_RTOL, bn_tap,
-                            plain_versions_on_card, u_kappa)
+    from chip_smoke import (KERNELS_VS_PLAIN_RTOL, bn_tap, pinned_norms,
+                            plain_versions_on_card, tables, u_kappa)
 
     cfg = _zoo_config(model, ensemble)
     batch = _zoo_batch()
@@ -646,7 +660,7 @@ def test_zoo_train_step_gpu_matches_cpu(cuda, model, ensemble, kernels):
             loss, _ = forward_loss(net, b)
         loss.backward()
         clamp_grads(net.parameters(), 1.0)
-        return (loss.item(), u_kappa(tap[0]),
+        return (loss.item(), u_kappa(tap[0], net),
                 {n: p.grad.cpu() for n, p in net.named_parameters()})
 
     counts = (entmax_cuda.LAUNCHES, entmax_cuda.BWD_LAUNCHES,
@@ -657,22 +671,30 @@ def test_zoo_train_step_gpu_matches_cpu(cuda, model, ensemble, kernels):
              scatter_cuda.LAUNCHES, arm_cuda.LAUNCHES, arm_cuda.BWD_LAUNCHES)
     arm = int(model in ("armnet", "gc_arm"))
     assert [a - c for a, c in zip(after, counts)] == [
-        arm, arm, 1 + int(ensemble), 0, 0]
+        arm, arm, tables(model, ensemble), 0, 0]
     with plain_versions_on_card():
         lq, _, gq = step(cuda, ({},))
-    cpu_in = {}
-    lc, _, gc = step("cpu", (cpu_in, None, card_out))
-    assert set(cpu_in) == set(card_out) == {
+    pinned = pinned_norms(create_model(cfg))
+    assert pinned == {
         "armnet": {"arm_bn"}, "gc_arm": {"emb_bn", "arm_bn"},
-        "sa_glu": set(), "afn": {"emb_bn", "afn_bn"}}[model]
-    for name, x in card_in.items():
+        "afn": {"emb_bn", "afn_bn"},
+        "gcn": {"affine.norms.0", "affine.norms.1"}}.get(model, set())
+    cpu_in = {}
+    lc, _, gc = step("cpu", (cpu_in, None,
+                             {n: card_out[n] for n in pinned}))
+    assert set(cpu_in) == set(card_in) == set(card_out) >= pinned
+    for name in pinned:
+        x = card_in[name]
         assert float((x - cpu_in[name]).norm()) <= 1e-5 * float(x.norm())
     assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(lg - lq) <= 1e-5 * abs(lq)
     rtol = max(1e-4, 16 * cond)
     for name, ref in gc.items():
+        noise = (model == "gcn" and name.endswith(".bias") and name.replace(
+            "linears", "norms").rpartition(".")[0] in pinned)
+        atol = 4e-6 if noise else 1e-6
         for other, tol in ((ref, rtol), (gq[name], KERNELS_VS_PLAIN_RTOL)):
             gap = float((gg[name] - other).norm())
-            assert gap <= (1e-6 * ref.numel() ** 0.5
+            assert gap <= (atol * ref.numel() ** 0.5
                            + tol * float(other.norm())), (name, gap, tol)
 
 

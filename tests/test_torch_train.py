@@ -128,7 +128,7 @@ def init_pair(kw, seed, kernels="auto", tweak=None):
     cfg = ModelConfig(**kw)
     model = create_model(cfg, kernels=kernels)
     model.load_state_dict(from_jax_arrays(flat, cfg))
-    return jm, nested["params"], nested["batch_stats"], model
+    return jm, nested["params"], nested.get("batch_stats", {}), model
 
 
 def write_split(root, seed, rows=(150, 70, 70)):
@@ -521,8 +521,6 @@ def test_cli_raises_on_what_is_not_ported(tmp_path):
         cli.main(base + ["--dataset", "uci"])
     with pytest.raises(NotImplementedError, match="mesh"):
         cli.main(base + ["--dataset", "tiny", "--mesh", "data:2"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(base + ["--dataset", "tiny", "--model", "dnn"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(base[:-4] + ["--dataset", "tiny"])
