@@ -29,6 +29,7 @@ from armnet_tpu_torch.models.pnn import IPNN, KPNN
 from armnet_tpu_torch.models.sa_glu import SAGLU
 from armnet_tpu_torch.models.wd import WideDeep
 from armnet_tpu_torch.models.xdfm import CIN, XDeepFM
+from armnet_tpu_torch.ops.layers import Embedding
 
 __all__ = ["create_model", "param_transform_for", "MODEL_NAMES", "PORTED",
            "ModelConfig"]
@@ -114,14 +115,18 @@ def param_transform_for(name):
     return _PARAM_TRANSFORMS.get(name)
 
 
-def create_model(config, seed=0, device="cpu", kernels="auto"):
+def create_model(config, seed=0, device="cpu", kernels="auto",
+                 dtype=torch.float32):
     """Build a model from a ModelConfig. Parameters are drawn on the CPU from
     torch.Generator().manual_seed(seed), then moved to `device`. `kernels`
     is the kernel choice (kernels/config.py BACKENDS; ExperimentConfig
     .kernels): 'pallas-fused' runs armnet_1h's interaction through the
     fused kernels; the other models take the per-op kernels under every
-    choice, as in the JAX package. It adds no parameter, so a state_dict
-    loads under either choice."""
+    choice, as in the JAX package. `dtype` is the activation dtype
+    (utils.config.compute_dtype: bfloat16 under --bf16): every Embedding
+    casts its output to it and the layers below follow their inputs, as
+    the JAX package's compute dtype does; parameters stay float32.
+    Neither adds a parameter, so a state_dict loads under every choice."""
     use_fused_arm(kernels)                     # raises on an unknown name
     name = config.model
     if name not in _REGISTRY:
@@ -131,5 +136,11 @@ def create_model(config, seed=0, device="cpu", kernels="auto"):
             f"model {name!r} has a scalar head and does not support "
             f"noutput={config.noutput} (multi-class); pick an MLP-headed "
             f"model (e.g. dnn/armnet/armnet_1h/...)")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype} is not float32 or bfloat16")
     g = torch.Generator().manual_seed(int(seed))
-    return _REGISTRY[name](config, g, kernels).to(device)
+    model = _REGISTRY[name](config, g, kernels)
+    for m in model.modules():
+        if isinstance(m, Embedding):
+            m.compute_dtype = dtype
+    return model.to(device)

@@ -4,7 +4,7 @@ import torch
 from torch import nn
 
 from armnet_tpu_torch.ops import initializers as init
-from armnet_tpu_torch.ops.layers import MLP, Embedding
+from armnet_tpu_torch.ops.layers import MLP, Embedding, promoted
 
 __all__ = ["split_batch", "squeeze_logits", "add_first_order", "DeepEnsemble",
            "VALUE_CLAMP"]
@@ -50,4 +50,4 @@ class DeepEnsemble(nn.Module):
         emb = self.deep_embedding(ids, values)
         y_deep = self.deep_mlp(emb.reshape(emb.shape[0], -1))
         both = torch.cat([y, y_deep], dim=-1)               # [B, 2*noutput]
-        return torch.matmul(both, self.ens_kernel) + self.ens_bias
+        return torch.matmul(*promoted(both, self.ens_kernel)) + self.ens_bias

@@ -12,7 +12,7 @@ from torch import nn
 
 from armnet_tpu_torch.models.common import split_batch, squeeze_logits
 from armnet_tpu_torch.ops import initializers as init
-from armnet_tpu_torch.ops.layers import MLP, Dropout, Embedding
+from armnet_tpu_torch.ops.layers import MLP, Dropout, Embedding, promoted
 
 __all__ = ["GraphAttention", "GAT"]
 
@@ -34,7 +34,7 @@ class GraphAttention(nn.Module):
 
     def forward(self, x, adj):
         nout = self.W.shape[-1]
-        h = torch.einsum("bfi,hio->bhfo", x, self.W)              # [B,H,F,out]
+        h = torch.einsum("bfi,hio->bhfo", *promoted(x, self.W))  # [B,H,F,out]
         e_src = torch.einsum("bhfo,ho->bhf", h, self.a[:, :nout])
         e_dst = torch.einsum("bhfo,ho->bhf", h, self.a[:, nout:])
         e = F.leaky_relu(e_src[..., None] + e_dst[:, :, None, :],

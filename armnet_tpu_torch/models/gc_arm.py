@@ -12,7 +12,7 @@ from armnet_tpu_torch.models.common import (VALUE_CLAMP, DeepEnsemble,
 from armnet_tpu_torch.ops import initializers as init
 from armnet_tpu_torch.ops.entmax import sparse_normalizer
 from armnet_tpu_torch.ops.interaction import mh_gate_proj
-from armnet_tpu_torch.ops.layers import MLP, BatchNorm, Embedding
+from armnet_tpu_torch.ops.layers import MLP, BatchNorm, Embedding, promoted
 
 __all__ = ["GCSparseAttLayer", "GCARM"]
 
@@ -34,8 +34,8 @@ class GCSparseAttLayer(nn.Module):
 
     def forward(self, x):
         m = mh_gate_proj(self.bilinear, self.query)              # [K*O, E]
-        gates = torch.matmul(x, m.t())                           # [B, F, K*O]
-        gctx = torch.matmul(x.sum(1), m.t())                     # [B, K*O]
+        gates = torch.matmul(*promoted(x, m.t()))                # [B, F, K*O]
+        gctx = torch.matmul(*promoted(x.sum(1), m.t()))          # [B, K*O]
         sparse = sparse_normalizer(self.alpha, axis=1)(gates + gctx[:, None])
         nhead, nhid, nfield = self.values.shape
         return sparse * self.values.reshape(nhead * nhid, nfield).t()[None]
@@ -67,7 +67,8 @@ class GCARM(nn.Module):
         values = values.clamp(*VALUE_CLAMP)
         emb = self.embedding(ids, values)
         x_exp = self.emb_bn(torch.exp(emb))                      # [B, F, E]
-        arm = torch.einsum("bfe,bfc->bce", x_exp, self.attn_layers(emb))
+        arm = torch.einsum("bfe,bfc->bce",
+                           *promoted(x_exp, self.attn_layers(emb)))
         arm = self.arm_bn(arm)                                   # [B, K*O, E]
         y = self.mlp(arm.reshape(arm.shape[0], -1))
         if self.ensemble is not None:

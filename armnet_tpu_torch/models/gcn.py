@@ -9,7 +9,8 @@ from torch import nn
 
 from armnet_tpu_torch.models.common import split_batch, squeeze_logits
 from armnet_tpu_torch.ops import initializers as init
-from armnet_tpu_torch.ops.layers import MLP, Dropout, Embedding, normalize_adj
+from armnet_tpu_torch.ops.layers import (MLP, Dropout, Embedding,
+                                         normalize_adj, promoted)
 
 __all__ = ["GraphConvolution", "GCN"]
 
@@ -26,8 +27,8 @@ class GraphConvolution(nn.Module):
         self.dropout = Dropout(dropout)
 
     def forward(self, x, adj):
-        support = torch.matmul(self.dropout(x), self.weight)    # [B, F, out]
-        return torch.matmul(adj, support) + self.bias
+        support = torch.matmul(*promoted(self.dropout(x), self.weight))
+        return torch.matmul(*promoted(adj, support)) + self.bias
 
 
 class GCN(nn.Module):

@@ -8,7 +8,7 @@ from torch import nn
 
 from armnet_tpu_torch.models.common import split_batch, squeeze_logits
 from armnet_tpu_torch.ops import initializers as init
-from armnet_tpu_torch.ops.layers import MLP, Embedding
+from armnet_tpu_torch.ops.layers import MLP, Embedding, promoted
 
 __all__ = ["IPNN", "KPNN"]
 
@@ -50,4 +50,5 @@ class KPNN(IPNN):
                                                        g))
 
     def pair_products(self, ei, ej):
-        return torch.einsum("bki,ikj,bkj->bk", ei, self.kernel, ej)
+        return torch.einsum("bki,ikj,bkj->bk",
+                            *promoted(ei, self.kernel, ej))

@@ -25,6 +25,12 @@ projection, so the gates come out as [B, F, K*O] with the channel
 k*O + o (k-major) and the entmax over fields (axis 1) runs on them as on
 ARM-1h's [B, F, O]; `kernels` never changes that path.
 
+Under --bf16 (a bfloat16 emb) the products land on the JAX functions'
+dtypes: wk is cast to emb's dtype, as the JAX chain casts it, and every
+other product of an activation and a float32 parameter promotes to float32
+(ops.layers.promoted), as jnp.einsum does; the fused path computes in
+float32 and returns emb's dtype.
+
 Weights keep the JAX layout (wk [E, dk], query [O, dk], values [O, F];
 bilinear_w [K, E, dk], query [K, O, dk], values [K, O, F]) so these
 functions take the same arguments as their JAX counterparts.
@@ -35,6 +41,7 @@ import torch
 from armnet_tpu_torch.kernels import arm_cuda
 from armnet_tpu_torch.kernels.config import use_fused_arm
 from armnet_tpu_torch.ops.entmax import pick, sparse_normalizer
+from armnet_tpu_torch.ops.layers import promoted
 
 __all__ = ["arm1h_interaction", "arm1h_fused", "arm_exp_cross_fmajor",
            "mh_gate_proj", "arm_attention_multihead", "anova_kernel",
@@ -48,9 +55,9 @@ def arm1h_interaction(emb, wk, query, values, alpha, n_iter=50,
     if (use_fused_arm(kernels) and isinstance(alpha, (int, float))
             and float(alpha) > 1.0):
         return arm1h_fused(emb, wk, query, values, alpha, n_iter)
-    keys = torch.matmul(emb, wk)                               # [B, F, dk]
+    keys = torch.matmul(emb, wk.to(emb.dtype))                 # [B, F, dk]
     d_k = query.shape[-1]
-    gates = torch.matmul(keys, query.t()) * (d_k ** -0.5)      # [B, F, O]
+    gates = torch.matmul(*promoted(keys, query.t())) * (d_k ** -0.5)
     sparse = sparse_normalizer(alpha, axis=1, n_iter=n_iter)(gates)
     return arm_exp_cross_fmajor(emb, sparse * values.t()[None])
 
@@ -69,14 +76,14 @@ def arm_attention_multihead(emb, bilinear_w, query, values, normalizer):
     as [F, K*O]."""
     d_k = bilinear_w.shape[-1]
     m = mh_gate_proj(bilinear_w, query)
-    gates = torch.matmul(emb, m.t()) * (d_k ** -0.5)          # [B, F, K*O]
+    gates = torch.matmul(*promoted(emb, m.t())) * (d_k ** -0.5)  # [B,F,KO]
     nhead, nhid, nfield = values.shape
     return normalizer(gates) * values.reshape(nhead * nhid, nfield).t()[None]
 
 
 def arm_exp_cross_fmajor(emb, weight):
     """emb [B, F, E], weight [B, F, C] -> exp(sum_f w * e) [B, C, E]."""
-    return torch.exp(torch.einsum("bfe,bfc->bce", emb, weight))
+    return torch.exp(torch.einsum("bfe,bfc->bce", *promoted(emb, weight)))
 
 
 def anova_kernel(x, order):
@@ -95,7 +102,7 @@ def anova_kernel(x, order):
 
 def cross_layer(x0, x, w, b):
     """One DCN cross layer: x0 * (x @ w) + b + x, w [in, 1], b [in]."""
-    return x0 * torch.matmul(x, w) + b + x
+    return x0 * torch.matmul(*promoted(x, w)) + b + x
 
 
 def compressed_interaction_step(x0, xk, filt):
@@ -104,7 +111,7 @@ def compressed_interaction_step(x0, xk, filt):
     x0[:, f] * xk[:, c] -> [B, nfilter, E]."""
     b, _, e = x0.shape
     h = (x0[:, :, None, :] * xk[:, None, :, :]).reshape(b, -1, e)
-    return torch.relu(torch.matmul(filt.t(), h))
+    return torch.relu(torch.matmul(*promoted(filt.t(), h)))
 
 
 class _ARM1hFused(torch.autograd.Function):

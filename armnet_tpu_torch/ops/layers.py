@@ -14,9 +14,17 @@
   SelfAttnLayer scaled dot-product self-attention over fields (SA-GLU)
   MultiHeadAttention  multi-head attention with residual + LayerNorm
   triu_indices / all_pair_indices / normalize_adj helpers
+  promoted      operands cast to their promoted dtype, for the products
+                that mix activations and parameters
 
 Parameters are created on the generator's device; move the model with
-`.to(device)` afterwards.
+`.to(device)` afterwards. They stay float32. The activations follow the
+JAX package's compute-dtype contract (--bf16): Embedding casts its output
+to its `compute_dtype` (set by models.create_model), TorchLinear and
+BatchNorm return their input's dtype (BatchNorm's statistics in float32),
+and a product of a bfloat16 activation and a float32 parameter promotes to
+float32 as jnp.matmul and jnp.einsum do (torch.matmul would raise; the
+callers pass their operands through `promoted`).
 """
 
 import math
@@ -34,7 +42,7 @@ __all__ = ["TorchLinear", "BatchNorm", "Dropout", "Embedding",
            "FeaturesLinear", "fm_pool", "MLP", "SelfAttnLayer",
            "MultiHeadAttention", "triu_indices", "all_pair_indices",
            "normalize_adj", "batch_mask_scope", "current_batch_mask",
-           "dropout_scope"]
+           "dropout_scope", "promoted"]
 
 # The train step enters batch_mask_scope around the forward so BatchNorm
 # computes MASKED batch statistics: the loader pads the final partial batch
@@ -71,6 +79,15 @@ def dropout_scope(generator):
         _scope.generator = prev
 
 
+def promoted(*tensors):
+    """The tensors cast to their promoted dtype (torch.result_type's rules,
+    which are jnp's for these dtypes: bfloat16 with float32 is float32)."""
+    dtype = tensors[0].dtype
+    for t in tensors[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return tuple(t.to(dtype) for t in tensors)
+
+
 def triu_indices(n, diag_offset=1, device=None):
     """(i, j) long index tensors of the strict upper triangle of an (n, n)
     grid, row-major (numpy's np.triu_indices order)."""
@@ -97,7 +114,8 @@ def normalize_adj(adj):
 
 class TorchLinear(nn.Module):
     """Dense layer; weight [out, in] (torch layout), default nn.Linear init.
-    With bias=False it holds no bias and draws none."""
+    With bias=False it holds no bias and draws none. Weight and bias are
+    cast to the input's dtype, as the JAX layer casts them."""
 
     def __init__(self, in_features, out_features, generator, bias=True):
         super().__init__()
@@ -107,7 +125,8 @@ class TorchLinear(nn.Module):
             (out_features,), in_features, generator)) if bias else None)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 class BatchNorm(nn.Module):
@@ -118,7 +137,8 @@ class BatchNorm(nn.Module):
     UNBIASED variance (x n/(n-1)) into the running average, as torch does;
     inside batch_mask_scope both statistics take the real rows only (n =
     real rows x the other reduced axes), and an input that is not
-    batch-led raises."""
+    batch-led raises. The statistics are float32; the output takes the
+    input's dtype (mean, scale and shift cast to it)."""
 
     momentum = 0.9              # the share of the running average kept
 
@@ -168,8 +188,9 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean.view(bshape).to(x.dtype)) * inv.view(bshape)
-                + self.bias.view(bshape))
+        return ((x - mean.view(bshape).to(x.dtype))
+                * inv.view(bshape).to(x.dtype)
+                + self.bias.view(bshape).to(x.dtype))
 
 
 class Dropout(nn.Module):
@@ -192,15 +213,18 @@ class Dropout(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Value-scaled embedding table [nfeat, nemb], xavier_uniform init."""
+    """Value-scaled embedding table [nfeat, nemb], xavier_uniform init; the
+    output is cast to `compute_dtype` (float32, or bfloat16 under --bf16),
+    the one cast of the compute-dtype contract."""
 
     def __init__(self, nfeat, nemb, generator):
         super().__init__()
+        self.compute_dtype = torch.float32
         self.weight = nn.Parameter(init.xavier_uniform((nfeat, nemb),
                                                        generator))
 
     def forward(self, ids, values):
-        return embedding_bag(self.weight, ids, values)
+        return embedding_bag(self.weight, ids, values).to(self.compute_dtype)
 
 
 class FeaturesLinear(nn.Module):
@@ -274,8 +298,10 @@ class MultiHeadAttention(nn.Module):
     LayerNorm (eps 1e-6): bias-free q, k, v and output projections
     (linears 0-3), scores scaled by n_k^-0.5, -1e9 where mask == 0 (mask
     [B, L, L] or broadcastable to it, shared by the heads), dropout on the
-    projected output. Returns (y [B, L, ninput], attn [B, H, L, L]). No zoo
-    model uses it; it is layer API, as in the JAX package."""
+    projected output; the LayerNorm promotes a bfloat16 input to its
+    float32 parameters' dtype, as flax's does. Returns (y [B, L, ninput],
+    attn [B, H, L, L]). No zoo model uses it; it is layer API, as in the
+    JAX package."""
 
     def __init__(self, ninput, nhead, n_k, n_v, dropout, generator):
         super().__init__()
@@ -298,4 +324,5 @@ class MultiHeadAttention(nn.Module):
         attn = torch.softmax(attn, dim=-1)
         y = torch.matmul(attn, v).transpose(1, 2).reshape(bsz, seq_len, -1)
         y = self.dropout(self.linears[3](y)) + x
+        y, _ = promoted(y, self.layer_norm.weight)
         return self.layer_norm(y), attn

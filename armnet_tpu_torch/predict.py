@@ -10,7 +10,8 @@ Output: `--output` (default `<input>.scores`; '-' = stdout, and the summary
 then goes to stderr) with one line per real row: the sigmoid probability,
 or space-separated class probabilities for a `noutput > 1` head. The
 one-line JSON summary carries `auc` (binary, both classes present) or
-`accuracy` (multi-class), and the scoring loop's wall time.
+`accuracy` (multi-class), and the scoring loop's wall time. A checkpoint
+trained with --bf16 scores in bfloat16 (restored from its sidecar).
 """
 
 import dataclasses
@@ -29,7 +30,7 @@ from armnet_tpu_torch.models.config import ModelConfig
 from armnet_tpu_torch.train.checkpoint import load_checkpoint, resolve_root
 from armnet_tpu_torch.train.metrics import masked_accuracy, masked_roc_auc
 from armnet_tpu_torch.utils.config import (ExperimentConfig, build_arg_parser,
-                                           check_supported)
+                                           check_supported, compute_dtype)
 
 __all__ = ["main", "load_model", "score"]
 
@@ -80,7 +81,8 @@ def _restore_model_config(cfg, meta, parser, argv):
 def load_model(root, tag, cfg, device):
     """The checkpoint's model, in eval mode on `device`."""
     state, _ = load_checkpoint(root, tag)
-    model = create_model(cfg, seed=cfg.seed, kernels=cfg.kernels)
+    model = create_model(cfg, seed=cfg.seed, kernels=cfg.kernels,
+                         dtype=compute_dtype(cfg))
     model.load_state_dict(state)
     return model.to(device).eval()
 
@@ -138,7 +140,7 @@ def main(argv=None):
     probs = (torch.softmax(logits, -1) if multiclass
              else torch.sigmoid(logits))
     real = masks > 0
-    probs = probs[real].cpu().numpy()          # waits for the device
+    probs = probs[real].float().cpu().numpy()  # waits for the device
     seconds = time.perf_counter() - t0
 
     if outp is None:

@@ -3,7 +3,10 @@
     python -m armnet_tpu_torch.train --model armnet_1h --dataset frappe \
         --data_dir data/ --alpha 2.0 --h 128 --lr 0.001
 
-Loads {data_dir}/{dataset}/tr*|va*|te*libsvm once, then for each seed in
+Loads {data_dir}/{dataset}/tr*|va*|te*libsvm once (or, where the folder
+holds `*.arff`, the UCI multi-class split of data/uci.py: --valid_perc
+carves the valid split from train, a head of noutput <= 1 becomes nclass
+outputs, and nfield is the dataset's), then for each seed in
 [seed, seed + repeat): re-seeds, builds a fresh logger, model and optimizer,
 and runs the epoch loop with early stopping. Per seed it writes
 {log_dir}/{exp_name}_{seed}/stdout.log and metrics.jsonl, and, with
@@ -13,6 +16,8 @@ training checkpoint (model, optimizer, step) into every seed's trainer.
 With --repeat > 1 the mean and std over seeds go to stdout and to
 {log_dir}/{exp_name}.repeat_summary.log. `--device` defaults to cuda and
 raises when CUDA is absent; pass `--device cpu` to train on the CPU.
+`--bf16` computes the activations in bfloat16 (parameters, losses,
+metrics and the kernels' boundaries stay float32).
 `--kernels pallas-fused` trains through the fused ARM-1h kernels (the
 trainer builds the model with the config's choice, and the checkpoints'
 metadata keeps it for predict). `--matmul_precision high` lets float32
@@ -28,6 +33,7 @@ import numpy as np
 
 from armnet_tpu_torch import resolve_device, set_matmul_precision
 from armnet_tpu_torch.data.libsvm import make_dataloaders
+from armnet_tpu_torch.data.uci import uci_loader
 from armnet_tpu_torch.train.checkpoint import restore_checkpoint
 from armnet_tpu_torch.train.loop import Trainer
 from armnet_tpu_torch.utils.config import (ExperimentConfig, build_arg_parser,
@@ -46,10 +52,19 @@ def main(argv=None):
 
     base = os.path.join(cfg.data_dir, cfg.dataset)
     if glob.glob(os.path.join(base, "*.arff")):
-        raise NotImplementedError(
-            "UCI (*.arff) datasets are not ported yet; see ROADMAP.md")
-    train_loader, val_loader, test_loader = make_dataloaders(
-        cfg.dataset, cfg.data_dir, cfg.nfield, cfg.batch_size, seed=cfg.seed)
+        train_loader, val_loader, test_loader = uci_loader(
+            base, cfg.batch_size, valid_perc=cfg.valid_perc, seed=cfg.seed)
+        # every UCI set, a binary one too, takes the softmax-CE + accuracy
+        # head; the table keeps nfeat rows, nfield of them live
+        nclass, nfield = train_loader.nclass, train_loader.ds.nfield
+        cfg = cfg.replace(
+            noutput=nclass if nclass >= 2 and cfg.noutput <= 1
+            else cfg.noutput,
+            nfield=nfield, nfeat=max(cfg.nfeat, nfield))
+    else:
+        train_loader, val_loader, test_loader = make_dataloaders(
+            cfg.dataset, cfg.data_dir, cfg.nfield, cfg.batch_size,
+            seed=cfg.seed)
 
     results = []
     for seed in range(cfg.seed, cfg.seed + cfg.repeat):

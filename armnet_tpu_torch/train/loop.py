@@ -28,6 +28,7 @@ from armnet_tpu_torch.train.checkpoint import save_checkpoint
 from armnet_tpu_torch.train.step import (create_train_state, init_meters,
                                          make_eval_step, make_train_step,
                                          task_fns)
+from armnet_tpu_torch.utils.config import compute_dtype
 from armnet_tpu_torch.utils.logging import AverageMeter, time_since
 
 __all__ = ["Trainer", "run_epoch"]
@@ -97,7 +98,8 @@ class Trainer:
         self.device = resolve_device(config.device)
 
         model = create_model(config, seed=seed, device=self.device,
-                             kernels=config.kernels)
+                             kernels=config.kernels,
+                             dtype=compute_dtype(config))
         # the JAX trainer draws one batch here (next(iter(train_loader))),
         # which advances the shuffle counter: keep its epoch schedule
         train_loader.epoch += 1

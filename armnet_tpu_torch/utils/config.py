@@ -8,16 +8,21 @@ kernels), while `xla` raises; whether a tensor gets the kernel or its plain
 version follows its device. The multi-device flags
 (--mesh, --shard_embedding and the exchange options) are accepted, and the
 trainer raises NotImplementedError on them until that work is ported.
+`--bf16` travels as `compute_dtype(cfg)` into models.create_model, as the
+kernel choice does, with no global state.
 """
 
 import argparse
 import dataclasses
 from typing import Optional
 
+import torch
+
 from armnet_tpu_torch.kernels.config import BACKENDS, use_fused_arm
 from armnet_tpu_torch.models.config import ModelConfig
 
-__all__ = ["ExperimentConfig", "build_arg_parser", "check_supported"]
+__all__ = ["ExperimentConfig", "build_arg_parser", "check_supported",
+           "compute_dtype"]
 
 
 @dataclasses.dataclass
@@ -55,13 +60,14 @@ class ExperimentConfig(ModelConfig):
     device: str = "cuda"
 
 
+def compute_dtype(cfg):
+    """The activation dtype of `cfg` (--bf16), for models.create_model."""
+    return torch.bfloat16 if cfg.bf16 else torch.float32
+
+
 def check_supported(cfg):
     """Raise on settings this slice of the port does not run (they may
     arrive from JAX checkpoint metadata, which bypasses the parser)."""
-    if cfg.bf16:
-        raise NotImplementedError(
-            "--bf16 is not ported yet (the port computes in float32); "
-            "see ROADMAP.md")
     if cfg.kernels == "xla":
         raise NotImplementedError(
             "--kernels 'xla' has no counterpart in the port: on the card "
@@ -131,7 +137,10 @@ def build_arg_parser():
     p.add_argument("--matmul_precision", type=str, default=d.matmul_precision,
                    choices=["default", "high", "highest"])
     p.add_argument("--bf16", action="store_true", default=False,
-                   help="not ported yet: raises NotImplementedError")
+                   help="compute the activations in bfloat16: the "
+                        "embedding output is cast, each layer follows its "
+                        "input; parameters, losses, metrics and the entmax "
+                        "solve stay float32")
     p.add_argument("--kernels", type=str, default=d.kernels,
                    choices=list(BACKENDS),
                    help="auto and pallas: the per-op kernels; pallas-fused: "

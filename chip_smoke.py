@@ -19,7 +19,8 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               the table gradient on a Criteo batch's int32 and int64 ids,
               Zipf-skewed ids, all ids equal, wrapped and dropped ids and
               a ragged table, and on the Criteo batch at the zoo's widths
-              E = 1 (FeaturesLinear) and 20 (HOFM), twice (bitwise
+              E = 1 (FeaturesLinear) and 20 (HOFM) and on the UCI step's
+              16 live rows of 5,500 (512 updates each), twice (bitwise
               equal), its radix sort
               against a stable torch.sort, and its time split into the
               sort and the fill and segmented sums (by torch.profiler; by
@@ -35,16 +36,18 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               with h 10, Criteo's fields at nemb 40) and past the 40-field
               bucket (F 41, 43, 64, 128, the wide build at 43), at four
               alphas, K6 twice (bitwise equal); kernel, plain and
-              composed-path times at the Criteo and Diabetes130 steps
-              beside the bound, blocks per SM, K6's grid and its split
+              composed-path times at the Criteo and Diabetes130 steps and
+              at the UCI armnet_1h step (B 512, F 16, alpha 1.7) beside
+              the bound, blocks per SM, K6's grid and its split
               into its main kernel and the ordered sum of the blocks'
               partials
      kernel_multihead  K2 and K4 at the multi-head presets' channel
               counts C = nattn_head x h in {6, 8, 16, 32, 256, 512} at 39
               and 43 fields and four alphas against their plain versions;
-              timed at the cr_armnet step [4096, 39, 256], alpha 2, and
-              the db_armnet step [1024, 43, 32], alpha 1.7, beside the
-              bound and the backward's blocks per SM
+              timed at the cr_armnet step [4096, 39, 256], alpha 2, the
+              db_armnet step [1024, 43, 32], alpha 1.7, and the UCI armnet
+              step [512, 16, 512], alpha 1.7, beside the bound and the
+              backward's blocks per SM
   4. serve    armnet_tpu_torch.predict at the Criteo width of the
               cr_armnet1h preset (nfeat 2.1M, 39 fields, E=10, h=128, MLP
               2x500, alpha 2.0), ensemble off and on, on a seeded synthetic
@@ -101,8 +104,29 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               step), falling losses, one step against the CPU, predict of
               the serving file with GPU vs CPU logits, peak device memory
               and warm train rows/s
+     uci_train  the UCI multi-class path on a seeded ARFF at the UCI-121
+              letter geometry (20,000 rows, 16 columns, 26 classes,
+              conxuntos.dat 10,000 / 10,000): armnet at the CLI defaults
+              and armnet_1h under pallas-fused, --batch_size 512
+              --valid_perc 0.1, 10 epochs: launches, falling losses, one
+              step against the CPU (pinned; armnet_1h unpinned too), best
+              valid, test and train accuracy against the JAX package's
+     bf16     --bf16 on Frappe: frappe_armnet1h under auto and
+              pallas-fused and frappe_armnet, 2 epochs each: launches,
+              the Embedding outputs bfloat16 and the MLP head's input in
+              the JAX model's dtype, falling losses, the step against the
+              CPU (loss within 2e-2, the kernels held to their plain
+              versions at their boundary), best valid AUC against the JAX
+              package's --bf16 run, predict of the best checkpoint (bf16
+              restored from the sidecar), peak memory and warm rows/s
+              against the same run in float32
   9. profile_train  torch.profiler over one warm Criteo-width train step,
               under auto and under pallas-fused
+ 10. entmax_alpha  the learned-alpha entmax (a tensor alpha, torch ops on
+              every device) at [4096, 39, 128] over fields, a scalar and a
+              per-column alpha: y against the CPU within 1e-5, dx and
+              dalpha within 1e-5 of their norms, no kernel launch
+The armnet_1h phases hold their GPU-vs-CPU steps unpinned and pinned.
 Then one JSON line {"kernels": [...]} and, last, the device JSON line.
 Weights are random, drawn from a seed. Exits non-zero without a result when
 CUDA is absent. Imports nothing of JAX.
@@ -123,6 +147,7 @@ import torch
 from armnet_tpu_torch import predict
 from armnet_tpu_torch.data.libsvm import (BatchIterator, LibsvmDataset,
                                           make_dataloaders)
+from armnet_tpu_torch.data.uci import uci_loader
 from armnet_tpu_torch.kernels import (arm_cuda, bench, build, entmax_cuda,
                                       scatter_cuda)
 from armnet_tpu_torch.kernels.bench import (CRITEO_ARM, DIABETES_ARM,
@@ -140,8 +165,9 @@ from armnet_tpu_torch.ops.interaction import arm1h_interaction
 from armnet_tpu_torch.train import cli
 from armnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from armnet_tpu_torch.train.loop import Trainer, run_epoch
-from armnet_tpu_torch.train.step import clamp_grads, forward_loss
-from armnet_tpu_torch.utils.config import ExperimentConfig, build_arg_parser
+from armnet_tpu_torch.train.step import clamp_grads, forward_loss, task_fns
+from armnet_tpu_torch.utils.config import (ExperimentConfig, build_arg_parser,
+                                           compute_dtype)
 from armnet_tpu_torch.utils.presets import PRESETS
 from armnet_tpu_torch.utils.logging import get_logger, remove_logger
 
@@ -206,12 +232,14 @@ def phase_device():
 
 def main_path_instantiations():
     """The kernel instantiations that the smoke's main paths launch (alpha
-    2 at Criteo and Frappe, 1.7 at 43 fields for Diabetes130; int32 ids),
-    as ptxas_report names them."""
+    2 at Criteo and Frappe, 1.7 at 43 fields for Diabetes130 and at 16
+    for the UCI letter geometry; int32 ids), as ptxas_report names
+    them."""
     names = {"sum_rows_kernel"}
     # (alpha, the entmax's d, K5's and K6's field bucket: 0 is the column
     # in shared memory)
-    for alpha, fields, bucket in ((2.0, (39, 10), 40), (1.7, (43,), 0)):
+    for alpha, fields, bucket in ((2.0, (39, 10), 40), (1.7, (43,), 0),
+                                  (1.7, (UCI_FIELDS,), 40)):
         fwd, bwd = entmax_cuda.mode_id(alpha), entmax_cuda.g_mode_id(alpha)
         names |= {f"entmax_fwd_kernel<{entmax_cuda.route_for(d)[1]},{fwd}>"
                   for d in fields}
@@ -405,12 +433,50 @@ def write_criteo_libsvm(path, rows, nfeat, nfield, seed):
         f.writelines(line % (labels[r], *pairs[r]) for r in range(rows))
 
 
+# the UCI-121 `letter` dataset's geometry: 20,000 rows of 16 numeric
+# columns and a 26-value nominal class, split 10,000 / 10,000 by its
+# conxuntos.dat (the collection is fetched over the network, so the smoke
+# writes a seeded stand-in: write_uci_letter)
+UCI_ROWS, UCI_FIELDS, UCI_CLASSES = 20_000, 16, 26
+UCI_BATCH, UCI_NFEAT = 512, 5500     # --batch_size 512; the CLI's nfeat
+UCI_ARM = (UCI_BATCH, UCI_FIELDS, 10, 10, 128)     # armnet_1h's K5/K6 step
+
+
+def write_uci_letter(root, seed=SEED):
+    """{root}/letter/letter.arff and conxuntos.dat at the letter geometry,
+    from numpy seeded `seed`: a class signal planted in the column means
+    (a unit-normal centre per class and column, unit noise), then each
+    column scaled and shifted (the Standardizer takes those out). Returns
+    the dataset folder."""
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, UCI_CLASSES, UCI_ROWS)
+    centers = rng.randn(UCI_CLASSES, UCI_FIELDS)
+    x = centers[y] + rng.randn(UCI_ROWS, UCI_FIELDS)
+    x = x * rng.uniform(0.5, 8.0, UCI_FIELDS) + rng.uniform(-5, 10,
+                                                             UCI_FIELDS)
+    folder = os.path.join(root, "letter")
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "letter.arff"), "w") as f:
+        f.write("@relation letter\n")
+        f.writelines(f"@attribute f{j} numeric\n" for j in range(UCI_FIELDS))
+        f.write("@attribute clase {" + ",".join(map(str, range(UCI_CLASSES)))
+                + "}\n@data\n")
+        f.writelines(",".join(f"{v:.4f}" for v in row) + f",{label}\n"
+                     for row, label in zip(x, y))
+    order = rng.permutation(UCI_ROWS)
+    with open(os.path.join(folder, "conxuntos.dat"), "w") as f:
+        for part in (order[:UCI_ROWS // 2], order[UCI_ROWS // 2:]):
+            f.write(" ".join(map(str, part)) + "\n")
+    return folder
+
+
 def phase_kernel_table_grad():
     """The table-gradient kernels against their plain version (index_add_)
     and against themselves (bitwise), on the train step's shapes: g
     [4096*39, 10] and nrows 2.1M, and on the Criteo batch's ids at the
     zoo's widths (bench.ZOO_WIDTHS: FeaturesLinear's E = 1, HOFM's E =
-    20). The plain version runs on a CPU copy of
+    20), and on the UCI step's ids (16 live rows of 5,500, 512 updates
+    each). The plain version runs on a CPU copy of
     the inputs, where index_add_ adds in the kernel's order: where no row
     has more than scatter_cuda.CHUNK updates (which the kernel sums whole,
     in that order) the result is held at rtol 1e-5, atol 1e-6; where one
@@ -421,7 +487,7 @@ def phase_kernel_table_grad():
     sort is held to a stable torch.sort (the same keys and permutation).
     Timed on bench.table_grad_cases (a Criteo batch with ids uniform
     within each field, the same Zipf-skewed, all ids equal) and on the
-    Criteo batch at E = 1 and 20: the whole
+    Criteo batch at E = 1 and 20 and the UCI step: the whole
     call, its kernels' device time split into the sort (the key prep
     folded into its first pass) and the zero fill with the segmented sums,
     the PyTorch route it replaced (elementwise prep, stable torch.sort)
@@ -434,6 +500,11 @@ def phase_kernel_table_grad():
     cases = {name: (ids, nrows, 10) for name, ids in timed_cases.items()}
     for e in ZOO_WIDTHS:
         cases[f"criteo_batch_e{e}"] = (crit, nrows, e)
+    # the UCI step: every row's ids are its 16 column indices, so 512 rows
+    # put 16 segments of 512 into the 5,500-row default table
+    cases["uci_16_live"] = (torch.arange(
+        UCI_FIELDS, dtype=torch.int32, device="cuda").repeat(UCI_BATCH),
+        UCI_NFEAT, 10)
     timed_names = set(cases)
     cases["criteo_batch_int64"] = (crit.long(), nrows, 10)
     cases["wrapped_and_dropped"] = (torch.randint(
@@ -518,7 +589,8 @@ def phase_kernel_arm():
     four alphas: the forward within rtol/atol 2e-5, the four gradients
     within rtol 5e-4, atol 5e-5 (the JAX package's tolerances for its fused
     kernel, tests/test_arm_pallas.py), and K6 equal to itself bit for bit.
-    Times at the Criteo and Diabetes130 steps: kernel, plain version and
+    Times at the Criteo and Diabetes130 steps and, at alpha 1.7, the UCI
+    armnet_1h step (B 512, F 16): kernel, plain version and
     the composed path of --kernels auto (GEMMs, the entmax kernel, einsum
     and exp, and its autograd backward), which is the yardstick: no single
     PyTorch call computes this function."""
@@ -556,8 +628,10 @@ def phase_kernel_arm():
                 check(torch.equal(a, b), f"arm1h_bwd kernel {name} not "
                                          f"bitwise deterministic at "
                                          f"alpha={alpha} {shape}")
-        for step, shape in (("criteo", CRITEO_ARM),
-                            ("diabetes", DIABETES_ARM)):
+        steps = [("criteo", CRITEO_ARM), ("diabetes", DIABETES_ARM)]
+        if alpha == 1.7:
+            steps.append(("uci", UCI_ARM))
+        for step, shape in steps:
             stats.update(arm_step_times(g, step, shape, alpha, ferrs, berrs))
     return stats
 
@@ -855,6 +929,7 @@ def entmax_support(model, batch, rows=None):
     from armnet_tpu_torch.models.common import VALUE_CLAMP
     from armnet_tpu_torch.models.gc_arm import GCARM
     from armnet_tpu_torch.ops.entmax import entmax_bisect
+    from armnet_tpu_torch.ops.layers import promoted
 
     if not isinstance(model, (ARMNet1H, ARMNet, GCARM)):
         return None
@@ -865,8 +940,9 @@ def entmax_support(model, batch, rows=None):
     if isinstance(model, GCARM):
         return (model.attn_layers(emb) != 0).cpu()
     a = model.attn_layer
-    keys = torch.matmul(emb, a.bilinear_w)
-    gates = torch.matmul(keys, a.query.t()) * (a.query.shape[-1] ** -0.5)
+    keys = torch.matmul(emb, a.bilinear_w.to(emb.dtype))
+    gates = torch.matmul(*promoted(keys, a.query.t())) * (
+        a.query.shape[-1] ** -0.5)
     return (entmax_bisect(gates, a.alpha, axis=1) > 0).cpu()
 
 
@@ -881,7 +957,7 @@ def u_kappa(inputs, model):
     from armnet_tpu_torch.ops.layers import BatchNorm
 
     def kappa(x):
-        x = x.movedim(1, 0).reshape(x.shape[1], -1)
+        x = x.float().movedim(1, 0).reshape(x.shape[1], -1)
         return float((x.mean(1).abs() / x.std(1)).max())
     axis1 = {n for n, m in model.named_modules()
              if isinstance(m, BatchNorm) and m.channel_axis == 1}
@@ -940,36 +1016,48 @@ def bn_tap(model, inputs, outputs=None, pin=None):
             h.remove()
 
 
+# each kernel wrapper: (module, wrapper's name, plain version's name, the
+# name read_counts gives its launches)
+KERNEL_WRAPPERS = (
+    (entmax_cuda, "entmax_kernel", "entmax_plain", "entmax_fwd"),
+    (entmax_cuda, "entmax_bwd_kernel", "entmax_bwd_plain", "entmax_bwd"),
+    (scatter_cuda, "table_grad", "table_grad_plain", "table_grad"),
+    (arm_cuda, "arm1h_fwd_kernel", "arm1h_fwd_plain", "arm1h_fwd"),
+    (arm_cuda, "arm1h_bwd_kernel", "arm1h_bwd_plain", "arm1h_bwd"))
+
+
 @contextlib.contextmanager
-def plain_versions_on_card():
-    """While active, CUDA tensors take the plain PyTorch versions instead of
-    the kernels (the wrappers are swapped; no kernel launches)."""
-    saved = (entmax_cuda.entmax_kernel, entmax_cuda.entmax_bwd_kernel,
-             scatter_cuda.table_grad, arm_cuda.arm1h_fwd_kernel,
-             arm_cuda.arm1h_bwd_kernel)
-    entmax_cuda.entmax_kernel = entmax_cuda.entmax_plain
-    entmax_cuda.entmax_bwd_kernel = entmax_cuda.entmax_bwd_plain
-    scatter_cuda.table_grad = scatter_cuda.table_grad_plain
-    arm_cuda.arm1h_fwd_kernel = arm_cuda.arm1h_fwd_plain
-    arm_cuda.arm1h_bwd_kernel = arm_cuda.arm1h_bwd_plain
+def swapped_kernels(make):
+    """While active, each kernel wrapper is make(name, kernel, plain): the
+    ops look the wrappers up at every call."""
+    saved = [getattr(mod, attr) for mod, attr, _, _ in KERNEL_WRAPPERS]
+    for (mod, attr, plain, name), kernel in zip(KERNEL_WRAPPERS, saved):
+        setattr(mod, attr, make(name, kernel, getattr(mod, plain)))
     try:
         yield
     finally:
-        (entmax_cuda.entmax_kernel, entmax_cuda.entmax_bwd_kernel,
-         scatter_cuda.table_grad, arm_cuda.arm1h_fwd_kernel,
-         arm_cuda.arm1h_bwd_kernel) = saved
+        for (mod, attr, _, _), kernel in zip(KERNEL_WRAPPERS, saved):
+            setattr(mod, attr, kernel)
+
+
+def plain_versions_on_card():
+    """While active, CUDA tensors take the plain PyTorch versions instead of
+    the kernels (no kernel launches)."""
+    return swapped_kernels(lambda name, kernel, plain: plain)
 
 
 def one_step_grads(state, cfg, batch, device, probes=(), tap=None):
     """(loss, logits, {name: clamped grad}, [probe(model, batch) for each
     of probes] taken before the step, u * kappa of the step's forward
-    (u_kappa)), on the CPU, of one train step from the model state `state`
-    on `device`, after the model's stored-parameter mutation (AFN's
+    (u_kappa)), on the CPU, of one train step (the task's loss, the
+    config's compute dtype) from the model state `state` on `device`,
+    after the model's stored-parameter mutation (AFN's
     positivity) as the train step does. `tap` is bn_tap's (inputs,
     outputs, pin) for the step's forward (default: a new inputs dict)."""
     tap = tap or ({},)
     with timed(f"step_{device}.setup"):
-        model = create_model(cfg, seed=SEED, kernels=cfg.kernels)
+        model = create_model(cfg, seed=SEED, kernels=cfg.kernels,
+                             dtype=compute_dtype(cfg))
         model.load_state_dict(state)
         model.to(device)
         batch = {k: v.to(device) for k, v in batch.items()}
@@ -978,11 +1066,12 @@ def one_step_grads(state, cfg, batch, device, probes=(), tap=None):
             transform(model)
     with timed(f"step_{device}.probe"):
         seen = [probe(model, batch) for probe in probes]
+    loss_fn = task_fns("multiclass" if cfg.noutput > 1 else "binary")[0]
     with timed(f"step_{device}.step"), bn_tap(model, *tap):
-        loss, logits = forward_loss(model, batch)
+        loss, logits = forward_loss(model, batch, loss_fn)
         loss.backward()
         clamp_grads(model.parameters(), 1.0)
-        return (loss.item(), logits.detach().cpu(),
+        return (loss.item(), logits.detach().float().cpu(),
                 {n: p.grad.cpu() for n, p in model.named_parameters()},
                 seen, u_kappa(tap[0], model))
 
@@ -999,11 +1088,40 @@ def within(delta, ref, rtol, atol=1e-6):
 KERNELS_VS_PLAIN_RTOL = 1e-5
 
 
+# the GPU-vs-CPU train loss under --bf16: XLA-free, but the card's and the
+# CPU's bfloat16 GEMMs round differently (read in the CPU tests: logits
+# within 2.6e-2 relative, losses within 1e-2), so the f32 1e-5 does not hold
+BF16_LOSS_RTOL = 2e-2
+
+
+def kernels_held_to_plain(gaps):
+    """While active, every kernel wrapper also runs its plain version on the
+    same (float32) inputs on the card and appends to gaps[name] the
+    norm-wise relative gap of its output: the kernels held at their
+    boundary, where a later layer's bfloat16 rounding cannot magnify a
+    1e-7 difference into one bfloat16 ulp."""
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def held(name, kernel, plain):
+        def run(*args):
+            out = kernel(*args)
+            want = plain(*args)
+            pairs = zip(out, want) if isinstance(out, tuple) else [(out, want)]
+            gaps.setdefault(name, []).append(max(rel(a, b) for a, b in pairs))
+            return out
+        return run
+
+    return swapped_kernels(held)
+
+
 def gpu_vs_cpu_step(ckpt, cfg, batch, enforce=True, pinned=False):
-    """One train step (masked BN forward, BCE, backward, clamp) from the
-    checkpoint on the card, on the card with the plain versions swapped in
-    (which isolates the kernels' share of any gap), and on the CPU.
-    With enforce=False the same numbers are logged and nothing is held.
+    """One train step (masked BN forward, the task's loss, backward, clamp)
+    from the checkpoint on the card, on the card with the plain versions
+    swapped in (which isolates the kernels' share of any gap), and on the
+    CPU. With enforce=False the same numbers are logged and nothing is
+    held; with a set of pin modes (pinned="both") only those steps are
+    held and the others logged.
 
     The loss is held to 1e-5 relative. Each clamped gradient is held
     norm-wise to atol 1e-6 plus rtol = max(1e-4, 16 u kappa) (u_kappa)
@@ -1020,102 +1138,142 @@ def gpu_vs_cpu_step(ckpt, cfg, batch, enforce=True, pinned=False):
     and two correct f32 steps then differ by more than any bound of the
     conditioning (ROADMAP.md §3). Pinned, the forward above each pinned
     BatchNorm is held too: its input on the card and on the CPU within
-    1e-5 of its norm. Also logged: the elements outside the elementwise
-    rtol 1e-4, atol 1e-6 and, among the batch's first CPU_ROWS rows, the
-    entmax columns whose support differs between card and CPU."""
+    1e-5 of its norm. pinned="both" (armnet_1h's phases) holds the
+    unpinned CPU step by the unpinned rule and a pinned one by the pinned
+    rule, and returns the unpinned result with the pinned one under
+    "pinned". Also logged: the elements outside the elementwise rtol 1e-4,
+    atol 1e-6 and, among the batch's first CPU_ROWS rows, the entmax
+    columns whose support differs between card and CPU.
+
+    Under --bf16 (cfg.bf16) the loss is held to BF16_LOSS_RTOL and the
+    kernels at their boundary instead (kernels_held_to_plain, each call's
+    output within KERNELS_VS_PLAIN_RTOL of its plain version); the
+    gradients and the BatchNorm inputs, whose bfloat16 GEMMs round apart
+    on the card and the CPU, are logged."""
     with timed("step.load"):
         state, _ = load_checkpoint(ckpt, "last")
-    card_in, card_out = {}, {}
-    lg, yg, gg, (sg,), cond = one_step_grads(
-        state, cfg, batch, "cuda", (entmax_support,), (card_in, card_out))
+    card_in, card_out, boundary = {}, {}, {}
+    with (kernels_held_to_plain(boundary) if cfg.bf16
+          else contextlib.nullcontext()):
+        lg, yg, gg, (sg,), cond = one_step_grads(
+            state, cfg, batch, "cuda", (entmax_support,),
+            (card_in, card_out))
     with plain_versions_on_card():
         lq, yq, gq, _, _ = one_step_grads(state, cfg, batch, "cuda")
-    pin = ({n: card_out[n] for n in pinned_norms(create_model(cfg))}
-           if pinned else {})
-    cpu_in = {}
-    lc, yc, gc, (sc,), _ = one_step_grads(
-        state, cfg, batch, "cpu",
-        (lambda model, b: entmax_support(model, b, CPU_ROWS),),
-        (cpu_in, None, pin))
-    bn_gaps = {n: float((card_in[n] - cpu_in[n]).norm() / card_in[n].norm())
-               for n in pin}
-    rtol = max(1e-4, 16 * cond)
-    flips = (torch.zeros(0) if sg is None
-             else (sg[:CPU_ROWS] != sc).any(1))      # [rows, O] columns
+
     def rel(a, b):
         return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
-    per_param, bad, unlike_plain, strict_outside = {}, [], [], {}
-    for name, ref in gc.items():
-        dg = (gg[name] - ref).abs()
-        tol = 1e-6 + 1e-4 * ref.abs()
-        out = int((dg > tol).sum())
-        per_param[name] = {"norm": float(ref.norm()), "numel": ref.numel(),
-                           "gpu_rel_gap": rel(gg[name], ref),
-                           "gpu_plain_rel_gap": rel(gq[name], ref),
-                           "kernels_vs_plain_rel_gap": rel(gg[name], gq[name]),
-                           "gpu_max_abs_gap": float(dg.max())}
-        if out:
-            i = int((dg - tol).argmax())
-            strict_outside[name] = {
-                "elements": out, "of": ref.numel(),
-                "worst_index": list(map(int, np.unravel_index(
-                    i, tuple(ref.shape)))),
-                "gpu": float(gg[name].reshape(-1)[i]),
-                "cpu": float(ref.reshape(-1)[i])}
-        if not within(gg[name] - ref, ref, rtol):
-            bad.append(name)
-        if not within(gg[name] - gq[name], gq[name], KERNELS_VS_PLAIN_RTOL):
-            unlike_plain.append(name)
-    # over the gradients above the atol floor (the biases that a
-    # BatchNorm follows have a true gradient of 0)
-    real = [v for v in per_param.values()
-            if v["norm"] > 1e-6 * v["numel"] ** 0.5]
-    res = {"loss_gpu": lg, "loss_cpu": lc,
-           "loss_rel_gap": abs(lg - lc) / abs(lc),
-           "loss_kernels_vs_plain_rel_gap": abs(lg - lq) / abs(lq),
-           "logits_max_abs_gap": float((yg - yc).abs().max()),
-           "logits_max_abs_gap_plain_on_card": float((yq - yc).abs().max()),
-           "u_kappa": cond, "grad_rtol": rtol,
-           "max_grad_rel_gap": max(v["gpu_rel_gap"] for v in real),
-           "max_grad_kernels_vs_plain_rel_gap": max(
-               v["kernels_vs_plain_rel_gap"] for v in real),
-           "support_flip_columns": int(flips.sum()),
-           "support_rows": min(CPU_ROWS, len(yc)),
-           "strict_elementwise_outside": {
-               n: v["elements"] for n, v in strict_outside.items()}}
-    if pinned:
-        res.update(pinned_bn=sorted(pin), bn_input_rel_gap=bn_gaps)
-    log("train_gpu_vs_cpu", model=cfg.model, ensemble=cfg.ensemble,
-        kernels=cfg.kernels, rows=len(yc),
-        nfield=cfg.nfield, alpha=cfg.alpha, ckpt=ckpt,
-        enforced=enforce, **res, outside_bound=bad,
-        unlike_plain=unlike_plain, per_param=per_param,
-        strict_worst=strict_outside)
-    if not enforce:
+    def hold(pin_on):
+        pin = ({n: card_out[n] for n in pinned_norms(create_model(cfg))}
+               if pin_on else {})
+        cpu_in = {}
+        lc, yc, gc, (sc,), _ = one_step_grads(
+            state, cfg, batch, "cpu",
+            (lambda model, b: entmax_support(model, b, CPU_ROWS),),
+            (cpu_in, None, pin))
+        bn_gaps = {n: rel(card_in[n].float(), cpu_in[n].float())
+                   for n in pin}
+        rtol = max(1e-4, 16 * cond)
+        flips = (torch.zeros(0) if sg is None
+                 else (sg[:CPU_ROWS] != sc).any(1))   # [rows, O] columns
+        per_param, bad, unlike_plain, strict_outside = {}, [], [], {}
+        for name, ref in gc.items():
+            dg = (gg[name] - ref).abs()
+            tol = 1e-6 + 1e-4 * ref.abs()
+            out = int((dg > tol).sum())
+            per_param[name] = {
+                "norm": float(ref.norm()), "numel": ref.numel(),
+                "gpu_rel_gap": rel(gg[name], ref),
+                "gpu_plain_rel_gap": rel(gq[name], ref),
+                "kernels_vs_plain_rel_gap": rel(gg[name], gq[name]),
+                "gpu_max_abs_gap": float(dg.max())}
+            if out:
+                i = int((dg - tol).argmax())
+                strict_outside[name] = {
+                    "elements": out, "of": ref.numel(),
+                    "worst_index": list(map(int, np.unravel_index(
+                        i, tuple(ref.shape)))),
+                    "gpu": float(gg[name].reshape(-1)[i]),
+                    "cpu": float(ref.reshape(-1)[i])}
+            if not within(gg[name] - ref, ref, rtol):
+                bad.append(name)
+            if not within(gg[name] - gq[name], gq[name],
+                          KERNELS_VS_PLAIN_RTOL):
+                unlike_plain.append(name)
+        # over the gradients above the atol floor (the biases that a
+        # BatchNorm follows have a true gradient of 0)
+        real = [v for v in per_param.values()
+                if v["norm"] > 1e-6 * v["numel"] ** 0.5]
+        res = {"loss_gpu": lg, "loss_cpu": lc,
+               "loss_rel_gap": abs(lg - lc) / abs(lc),
+               "loss_kernels_vs_plain_rel_gap": abs(lg - lq) / abs(lq),
+               "logits_max_abs_gap": float((yg - yc).abs().max()),
+               "logits_max_abs_gap_plain_on_card": float(
+                   (yq - yc).abs().max()),
+               "u_kappa": cond, "grad_rtol": rtol,
+               "max_grad_rel_gap": max(v["gpu_rel_gap"] for v in real),
+               "max_grad_kernels_vs_plain_rel_gap": max(
+                   v["kernels_vs_plain_rel_gap"] for v in real),
+               "support_flip_columns": int(flips.sum()),
+               "support_rows": min(CPU_ROWS, len(yc)),
+               "strict_elementwise_outside": {
+                   n: v["elements"] for n, v in strict_outside.items()}}
+        if pin_on:
+            res.update(pinned_bn=sorted(pin), bn_input_rel_gap=bn_gaps)
+        if cfg.bf16:
+            res["kernels_at_boundary_max_rel_gap"] = {
+                k: max(v) for k, v in boundary.items()}
+        enforced = (enforce if isinstance(enforce, bool)
+                    else pin_on in enforce)
+        log("train_gpu_vs_cpu", model=cfg.model, ensemble=cfg.ensemble,
+            kernels=cfg.kernels, bf16=cfg.bf16, rows=len(yc),
+            nfield=cfg.nfield, alpha=cfg.alpha, ckpt=ckpt,
+            enforced=enforced, pinned=pin_on, **res, outside_bound=bad,
+            unlike_plain=unlike_plain, per_param=per_param,
+            strict_worst=strict_outside)
+        if not enforced:
+            return res
+        if cfg.bf16:
+            check(res["loss_rel_gap"] <= BF16_LOSS_RTOL,
+                  f"GPU vs CPU bf16 train loss: relative gap "
+                  f"{res['loss_rel_gap']} > {BF16_LOSS_RTOL}")
+            worst = res["kernels_at_boundary_max_rel_gap"]
+            check(worst and all(v <= KERNELS_VS_PLAIN_RTOL
+                                for v in worst.values()),
+                  f"kernels vs plain versions at their boundary in a bf16 "
+                  f"step: {worst}")
+            return res
+        check(res["loss_rel_gap"] <= 1e-5,
+              f"GPU vs CPU train loss: relative gap {res['loss_rel_gap']}")
+        check(res["loss_kernels_vs_plain_rel_gap"] <= KERNELS_VS_PLAIN_RTOL,
+              f"train loss with the kernels vs the plain versions on the "
+              f"card: relative gap {res['loss_kernels_vs_plain_rel_gap']}")
+        check(all(v <= 1e-5 for v in bn_gaps.values()),
+              f"GPU vs CPU BatchNorm inputs: relative gaps {bn_gaps}")
+        check(not bad, f"GPU vs CPU clamped gradients outside norm-wise "
+                       f"rtol {rtol:.3g}, atol 1e-6: {bad}")
+        check(not unlike_plain,
+              f"clamped gradients with the kernels vs the plain versions on "
+              f"the card outside norm-wise rtol {KERNELS_VS_PLAIN_RTOL}, "
+              f"atol 1e-6: {unlike_plain}")
         return res
-    check(res["loss_rel_gap"] <= 1e-5,
-          f"GPU vs CPU train loss: relative gap {res['loss_rel_gap']}")
-    check(res["loss_kernels_vs_plain_rel_gap"] <= KERNELS_VS_PLAIN_RTOL,
-          f"train loss with the kernels vs the plain versions on the card: "
-          f"relative gap {res['loss_kernels_vs_plain_rel_gap']}")
-    check(all(v <= 1e-5 for v in bn_gaps.values()),
-          f"GPU vs CPU BatchNorm inputs: relative gaps {bn_gaps}")
-    check(not bad, f"GPU vs CPU clamped gradients outside norm-wise rtol "
-                   f"{rtol:.3g}, atol 1e-6: {bad}")
-    check(not unlike_plain,
-          f"clamped gradients with the kernels vs the plain versions on the "
-          f"card outside norm-wise rtol {KERNELS_VS_PLAIN_RTOL}, atol 1e-6: "
-          f"{unlike_plain}")
+
+    if pinned != "both":
+        return hold(bool(pinned))
+    res = hold(False)
+    res["pinned"] = {k: v for k, v in hold(True).items() if k in GAP_KEYS}
     return res
 
 
-def warm_train_rate(cfg, data, epochs=4):
-    """Host-clock rows/s of whole train epochs (run_epoch over the
-    TRAIN_BATCHES batches: host batch assembly, copies, steps) on a fresh
-    trainer of `cfg`, the first epoch being the warm-up. Returns (warm
-    rates, warm ms per step, the trainer)."""
-    loaders = make_dataloaders("criteo", data, 39, 4096, seed=SEED)
+def warm_train_rate(cfg, data, epochs=4, dataset="criteo", nfield=39):
+    """Host-clock rows/s of whole train epochs (run_epoch over the train
+    split of {data}/{dataset}, TRAIN_BATCHES batches for the synthetic
+    Criteo one: host batch assembly, copies, steps) on a fresh trainer of
+    `cfg`, the first epoch being the warm-up. Returns (warm rates, warm ms
+    per step, the trainer)."""
+    loaders = make_dataloaders(dataset, data, nfield, cfg.batch_size,
+                               seed=SEED)
     logger = get_logger(None, to_stdout=False, name="chip_smoke.train_rate")
     trainer = Trainer(cfg, *loaders, logger, seed=SEED)
     rows = len(loaders[0].ds)
@@ -1199,12 +1357,12 @@ def phase_train(tmp, data, first):
         with timed("train.gpu_vs_cpu"):
             cfg = criteo_config(ensemble, kernels)
             if not fused:
-                gap = gpu_vs_cpu_step(ckpt, cfg, first)
+                gap = gpu_vs_cpu_step(ckpt, cfg, first, pinned="both")
             else:
                 # held from the state the auto run's step was held at, so
                 # the two kernel choices are compared at one conditioning;
                 # the fused run's own state is logged beside it
-                gap = gpu_vs_cpu_step(state_ckpt, cfg, first)
+                gap = gpu_vs_cpu_step(state_ckpt, cfg, first, pinned="both")
                 gpu_vs_cpu_step(ckpt, cfg, first, enforce=False)
         if not ensemble and not fused:
             state_ckpt = ckpt
@@ -1221,7 +1379,7 @@ def phase_train(tmp, data, first):
             warm_ms_per_step=ms_step,
             gpu_vs_cpu={k: gap[k] for k in (
                 "loss_rel_gap", "logits_max_abs_gap", "u_kappa", "grad_rtol",
-                "max_grad_rel_gap", "support_flip_columns")})
+                "max_grad_rel_gap", "support_flip_columns", "pinned")})
         for k in totals:
             totals[k] += counts[k]
         totals[score_kernel] += score_launches
@@ -1335,7 +1493,7 @@ def phase_diabetes_train(tmp):
         cfg = ExperimentConfig(**vars(build_arg_parser().parse_args(flags)))
         with timed("diabetes_train.gpu_vs_cpu"):
             gap = gpu_vs_cpu_step(os.path.join(tmp, "ckpt", f"{exp}_{SEED}"),
-                                  cfg, first)
+                                  cfg, first, pinned="both")
         log("diabetes_train", recipe="db_armnet1h", kernels=kernels,
             steps=steps, eval_batches=evals, launches=counts,
             per_step={k: counts[k] / steps for k in counts},
@@ -1344,7 +1502,7 @@ def phase_diabetes_train(tmp):
             test_auc=[r["test"] for r in rows],
             gpu_vs_cpu={k: gap[k] for k in (
                 "loss_rel_gap", "logits_max_abs_gap", "u_kappa", "grad_rtol",
-                "max_grad_rel_gap", "support_flip_columns")})
+                "max_grad_rel_gap", "support_flip_columns", "pinned")})
         for k in totals:
             totals[k] += counts[k]
     return totals
@@ -1355,14 +1513,17 @@ def phase_diabetes_train(tmp):
 MULTIHEAD_C = (6, 8, 16, 32, 256, 512)
 # the timed steps: cr_armnet's gates (4 heads x 64) and db_armnet's (32 x 1)
 CR_ARMNET_SHAPE, DB_ARMNET_SHAPE = (4096, 39, 256), (1024, 43, 32)
+# the UCI armnet step: 4 heads x 128 neurons over 16 fields, batch 512
+UCI_ARMNET_SHAPE = (UCI_BATCH, UCI_FIELDS, 4 * 128)
 
 
 def phase_kernel_multihead():
     """K2 and K4 against their plain versions on [256, F, C] at F 39 and 43,
     C in MULTIHEAD_C and the four alphas, at the tolerances of the kernel
     phases; then both held to their plain versions at those tolerances and
-    timed at the cr_armnet step [4096, 39, 256], alpha 2, and the db_armnet
-    step [1024, 43, 32], alpha 1.7, beside the plain versions, the bounds
+    timed at the cr_armnet step [4096, 39, 256], alpha 2, the db_armnet
+    step [1024, 43, 32], alpha 1.7, and the UCI armnet step [512, 16, 512],
+    alpha 1.7, beside the plain versions, the bounds
     and the backward's blocks per SM. Returns {"fwd"|"bwd": {step: record}},
     each record's max_abs_err that of its own step."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -1387,7 +1548,8 @@ def phase_kernel_multihead():
                     errs[kind].append(err)
     out = {"fwd": {}, "bwd": {}}
     for step, shape, alpha in (("cr_armnet", CR_ARMNET_SHAPE, 2.0),
-                               ("db_armnet", DB_ARMNET_SHAPE, 1.7)):
+                               ("db_armnet", DB_ARMNET_SHAPE, 1.7),
+                               ("uci_armnet", UCI_ARMNET_SHAPE, 1.7)):
         x = torch.randn(shape, generator=g, device="cuda") * 3.0
         y = entmax_cuda.entmax_kernel(x, alpha, 1)
         dy = torch.randn(shape, generator=g, device="cuda")
@@ -1455,14 +1617,15 @@ def phase_serve_armnet(tmp, inp):
 
 
 def train_run(tmp, exp, flags, data, split, batch, epochs, want,
-              check_auc=None):
+              check_auc=None, pinned=True, enforce=True):
     """cli.main of `flags` for `epochs` on {data}/{split} with checkpoints,
     the counts set to 0 just before: launches equal to `want`, finite step
     losses whose last epoch's mean is below the first step's, a
     metrics.jsonl row per epoch (and check_auc(rows) where given), then
     one step from the run's checkpoint on the card against the CPU on
-    `batch` (gpu_vs_cpu_step). Returns (counts, metrics rows, the step's
-    gap, cli seconds, the config)."""
+    `batch` (gpu_vs_cpu_step, `pinned`, `enforce`), under the config the
+    run saved in its checkpoint's sidecar. Returns (counts, metrics rows,
+    the step's gap, cli seconds, the config)."""
     with timed(f"{exp}.cli"):
         _, counts, seconds = run_cli(flags + [
             "--dataset", split, "--data_dir", data, "--epoch", str(epochs),
@@ -1485,10 +1648,10 @@ def train_run(tmp, exp, flags, data, split, batch, epochs, want,
           f"{exp} metrics.jsonl rows {rows}")
     if check_auc is not None:
         check_auc(rows)
-    cfg = flags_config(flags)
+    ckpt = os.path.join(tmp, "ckpt", f"{exp}_{SEED}")
+    cfg = ExperimentConfig(**load_checkpoint(ckpt, "last")[1]["config"])
     with timed(f"{exp}.gpu_vs_cpu"):
-        gap = gpu_vs_cpu_step(os.path.join(tmp, "ckpt", f"{exp}_{SEED}"),
-                              cfg, batch, pinned=True)
+        gap = gpu_vs_cpu_step(ckpt, cfg, batch, enforce, pinned)
     return counts, rows, gap, seconds, cfg
 
 
@@ -1728,8 +1891,280 @@ def phase_criteo_zoo(tmp, data, first, inp):
     return totals
 
 
+# The JAX package on the CPU on write_uci_letter's file at the smoke's flags
+# and seed: `python train.py --model <m> --kernels <k> --dataset letter
+# --data_dir <dir> --batch_size 512 --valid_perc 0.1 --epoch 10 --patience
+# 10 --seed 2025` (armnet under auto, armnet_1h under pallas-fused, its
+# fused kernels in Pallas interpret mode there): {model: (best valid
+# accuracy, test accuracy at that epoch, best train accuracy)}. Valid and
+# test sit at chance (0.04) for 3 epochs while train accuracy climbs:
+# arm_bn's running variance decays from 1 toward the ~1e-8 batch variance
+# of exp(z) by 0.9 a step, so eval scores are flat until ~70 steps; from
+# epoch 6 valid holds 0.76-0.79.
+UCI_JAX = {"armnet": (0.781, 0.7943, 0.845889),
+           "armnet_1h": (0.785, 0.7894, 0.850556)}
+UCI_FLAGS = ["--batch_size", str(UCI_BATCH), "--valid_perc", "0.1"]
+# 10 epochs (180 steps), not 5: over the first ~90 steps valid and test
+# accuracy sit on arm_bn's running-variance transient (UCI_JAX's note),
+# where one step's rounding moves them by several points (the port on
+# the CPU read 0.353 / 0.3215 after 5 epochs against JAX's 0.373 /
+# 0.3669, its train accuracy within 0.003 of JAX's at every epoch)
+UCI_EPOCHS = 10
+
+
+def phase_uci_train(tmp):
+    """The UCI multi-class path at the letter geometry (write_uci_letter):
+    cli.main for UCI_EPOCHS epochs of armnet at the CLI defaults (alpha
+    1.7, 4 heads of 128, nemb 10, MLP 2 x 256, a 26-way head; K2/K4 at
+    [512, 16, 512], K7 into 16 live rows of 5,500) and of armnet_1h under
+    pallas-fused (K5 and K6 at 16 fields, alpha 1.7), --batch_size 512
+    --valid_perc 0.1
+    (train_run: launches, falling finite losses, one step against the CPU
+    held with the channel-axis-1 BatchNorms pinned, as armnet's steps are;
+    armnet_1h's unpinned step logged beside it: on an H100 a ReLU below
+    mlp.norms.0 flipped there, mlp.norms.0.bias 3.6e-3 apart at a 16 u
+    kappa of 2.0e-3, ROADMAP §3 fault 4); the best valid and test
+    accuracy and the best train accuracy at least the JAX package's
+    (UCI_JAX) less 0.02."""
+    folder = write_uci_letter(os.path.join(tmp, "uci_data"))
+    train, valid, test = uci_loader(folder, UCI_BATCH, valid_perc=0.1,
+                                    seed=SEED)
+    first = next(iter(BatchIterator(train.ds, UCI_BATCH)))
+    steps = UCI_EPOCHS * len(train)
+    evals = UCI_EPOCHS * (len(valid) + len(test))
+    totals = dict.fromkeys(read_counts(), 0)
+    for model, kernels in (("armnet", "auto"), ("armnet_1h", "pallas-fused")):
+        jax_valid, jax_test, jax_train = UCI_JAX[model]
+
+        def acc_floor(rows):
+            best = max(rows, key=lambda r: r["valid"])
+            got = (best["valid"], best["test"], max(r["train"] for r in rows))
+            check(all(g >= w - 0.02 for g, w in zip(
+                got, (jax_valid, jax_test, jax_train))),
+                  f"UCI {model}: best valid, its test and the best train "
+                  f"accuracy {got} below the JAX package's "
+                  f"{UCI_JAX[model]} less 0.02")
+
+        want = zoo_want(steps, evals, 1, 1)
+        if kernels == "pallas-fused":
+            want.update(entmax_fwd=0, entmax_bwd=0, arm1h_fwd=steps + evals,
+                        arm1h_bwd=steps)
+        counts, rows, gap, seconds, cfg = train_run(
+            tmp, f"uci_{model}", ["--model", model, "--kernels", kernels,
+                                  *UCI_FLAGS],
+            os.path.dirname(folder), "letter", first, UCI_EPOCHS, want,
+            acc_floor, pinned=True if model == "armnet" else "both",
+            enforce={True})
+        check((cfg.noutput, cfg.nfield, cfg.nfeat)
+              == (UCI_CLASSES, UCI_FIELDS, UCI_NFEAT),
+              f"UCI run's config {cfg.noutput, cfg.nfield, cfg.nfeat}")
+        log("uci_train", model=model, kernels=kernels, rows=UCI_ROWS,
+            nfield=cfg.nfield, nclass=cfg.noutput, nfeat=cfg.nfeat,
+            steps=steps, eval_batches=evals, launches=counts,
+            per_step={k: counts[k] / steps for k in counts},
+            cli_seconds=seconds, train_acc=[r["train"] for r in rows],
+            valid_acc=[r["valid"] for r in rows],
+            test_acc=[r["test"] for r in rows],
+            jax_valid_test_train=list(UCI_JAX[model]),
+            gpu_vs_cpu={k: gap[k] for k in GAP_KEYS + ("pinned",)
+                        if k in gap})
+        for k in totals:
+            totals[k] += counts[k]
+    return totals
+
+
+# The JAX package's best valid AUC over 2 epochs on the CPU, `python
+# train.py <preset's flags> [--kernels pallas-fused] --batch_size 4096
+# --dataset frappe --data_dir data/ --epoch 2 --patience 2 --seed 2025
+# --bf16` (the fused kernels in Pallas interpret mode there): {(preset,
+# kernels): AUC}. In float32 the same armnet_1h run reads 0.8841 after 2
+# epochs (FRAPPE_JAX_VALID).
+BF16_JAX = {("frappe_armnet1h", "auto"): 0.839723,
+            ("frappe_armnet1h", "pallas-fused"): 0.905903,
+            ("frappe_armnet", "auto"): 0.912682}
+
+
+def phase_bf16(tmp, smi):
+    """--bf16 on Frappe: frappe_armnet1h under auto and pallas-fused and
+    frappe_armnet, 2 epochs each (train_run: launches, falling finite
+    losses; the step against the CPU with the loss within BF16_LOSS_RTOL
+    and the kernels held to their plain versions at their boundary,
+    unpinned and pinned), every Embedding's output bfloat16 and the MLP
+    head's input in the JAX model's dtype (float32 behind the promoting
+    gate products of the composed paths, bfloat16 behind the fused
+    kernel's cast back), the best valid AUC at least the JAX package's
+    (BF16_JAX) less 0.02, and the same run's in float32 beside it; the
+    share of arm_bn's channels whose batch variance is 0 in the first
+    three train steps (logged); predict of the best checkpoint, which
+    restores bf16 from the sidecar (its Embedding outputs bfloat16, its
+    scores within 5e-3 of the bfloat16 model's on the card); then peak
+    device memory and warm rows/s of each against the same run in
+    float32, on one card (printed, not claimed)."""
+    from armnet_tpu_torch.ops.layers import MLP, BatchNorm, Embedding
+
+    data = os.path.join(REPO, "data")
+    inp = os.path.join(data, "frappe", "test.libsvm")
+    (train, valid, test), first = split_batches("frappe", 10, 4096)
+    cut = {k: v[:CPU_ROWS] for k, v in first.items()}
+    steps, evals = 2 * train, 2 * (valid + test)
+    totals = dict.fromkeys(read_counts(), 0)
+    for preset, kernels, head in (
+            ("frappe_armnet1h", "auto", torch.float32),
+            ("frappe_armnet1h", "pallas-fused", torch.bfloat16),
+            ("frappe_armnet", "auto", torch.float32)):
+        exp = f"bf16_{preset}_{kernels}"
+        emb_dtypes, head_dtypes, flat_share = set(), set(), []
+
+        def record(module, args, out):
+            if isinstance(module, Embedding):
+                emb_dtypes.add(out.dtype)
+            elif isinstance(module, MLP):
+                head_dtypes.add(args[0].dtype)
+            elif (isinstance(module, BatchNorm) and module.training
+                  and module.channel_axis == 1 and len(flat_share) < 3):
+                # arm_bn in the run's first train steps: the share of its
+                # channels whose batch variance is 0 (exp(z) near 1.0
+                # rounds to one bfloat16 value)
+                x = args[0].float().movedim(1, 0).flatten(1)
+                flat_share.append(float((x.var(1) == 0).float().mean()))
+
+        def auc_floor(rows):
+            best = max(r["valid"] for r in rows)
+            check(best >= BF16_JAX[preset, kernels] - 0.02,
+                  f"{exp} valid AUC {[r['valid'] for r in rows]}: best "
+                  f"{best} < the JAX package's {BF16_JAX[preset, kernels]}"
+                  f" - 0.02")
+
+        want = zoo_want(steps, evals, 1, 1)
+        score_kernel = "entmax_fwd"
+        if kernels == "pallas-fused":
+            want.update(entmax_fwd=0, entmax_bwd=0, arm1h_fwd=steps + evals,
+                        arm1h_bwd=steps)
+            score_kernel = "arm1h_fwd"
+        flags = preset_flags(preset, kernels, "--bf16")
+        hook = torch.nn.modules.module.register_module_forward_hook(record)
+        try:
+            counts, rows, gap, seconds, cfg = train_run(
+                tmp, exp, flags, data, "frappe", cut, 2, want, auc_floor,
+                pinned="both" if "1h" in preset else True)
+        finally:
+            hook.remove()
+        check(cfg.bf16 and emb_dtypes == {torch.bfloat16}
+              and head_dtypes == {head},
+              f"{exp}: Embedding outputs {emb_dtypes}, MLP inputs "
+              f"{head_dtypes} (expected bfloat16, {head})")
+        ckpt = os.path.join(tmp, "ckpt", f"{exp}_{SEED}")
+        out = os.path.join(tmp, f"{exp}.scores")
+        emb_dtypes.clear()
+        hook = torch.nn.modules.module.register_module_forward_hook(record)
+        try:
+            with timed("bf16.predict"):
+                scored, score_launches = run_predict(ckpt, inp, out, 14430,
+                                                     score_kernel)
+        finally:
+            hook.remove()
+        lg = first_batch_logits(ckpt, cfg, inp, "cuda")
+        want_p = torch.sigmoid(lg.float()).numpy()
+        got_p = np.loadtxt(out, max_rows=len(want_p))
+        err = float(np.abs(got_p - want_p).max())
+        # predict restored bf16 from the sidecar: its Embedding outputs are
+        # bfloat16, and its scores are the bf16 model's (a bfloat16 GEMM
+        # of another batch size may round an ulp apart: 5e-3 a probability)
+        check(emb_dtypes == {torch.bfloat16} and err <= 5e-3,
+              f"{exp}: predict's Embedding outputs {emb_dtypes}, scores "
+              f"{err} from the bf16 model's on the card")
+        with timed("bf16.f32_run"):
+            _, f32_counts, _ = run_cli(preset_flags(preset, kernels) + [
+                "--dataset", "frappe", "--data_dir", data, "--epoch", "2",
+                "--patience", "2", "--seed", str(SEED), "--exp_name",
+                f"f32_{preset}_{kernels}", "--log_dir",
+                os.path.join(tmp, "log"), "--device", "cuda"])
+        with open(os.path.join(tmp, "log", f"f32_{preset}_{kernels}_{SEED}",
+                               "metrics.jsonl")) as f:
+            f32_valid = [json.loads(line)["valid"] for line in f]
+        rate = {}
+        for dtype_flags in ([], ["--bf16"]):
+            run_cfg = flags_config(preset_flags(preset, kernels,
+                                                *dtype_flags))
+            torch.cuda.reset_peak_memory_stats()
+            with timed("bf16.warm_rate"):
+                rates, ms_step, trainer = warm_train_rate(
+                    run_cfg, data, epochs=3, dataset="frappe", nfield=10)
+            rate["bf16" if dtype_flags else "f32"] = {
+                "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                "warm_rows_per_s": rates, "warm_ms_per_step": ms_step}
+            del trainer
+            torch.cuda.empty_cache()
+        log("bf16", preset=preset, kernels=kernels, steps=steps,
+            eval_batches=evals, launches=counts,
+            per_step={k: counts[k] / steps for k in counts},
+            cli_seconds=seconds, embedding_dtype=str(emb_dtypes),
+            mlp_input_dtype=str(head_dtypes),
+            arm_bn_zero_variance_share_first_steps=flat_share,
+            valid_auc=[r["valid"] for r in rows],
+            test_auc=[r["test"] for r in rows], f32_valid_auc=f32_valid,
+            jax_valid_floor=BF16_JAX[preset, kernels] - 0.02,
+            predict_best={"rows": scored["rows"], "auc": scored.get("auc"),
+                          "launches": score_launches,
+                          "vs_bf16_model_max_abs": err},
+            against_f32=rate, device=smi,
+            gpu_vs_cpu={k: gap[k] for k in GAP_KEYS + (
+                "kernels_at_boundary_max_rel_gap", "pinned") if k in gap})
+        for k in totals:
+            totals[k] += counts[k] + f32_counts[k]
+        totals[score_kernel] += score_launches
+    return totals
+
+
+def phase_entmax_alpha():
+    """The learned-alpha entmax (a tensor alpha: the generic bisection and
+    its VJP, torch ops on every device, as the JAX package runs it in XLA
+    ops) on CUDA tensors at [4096, 39, 128] over axis 1, with a scalar
+    alpha and a per-column alpha [1, 1, 128] in (1.2, 2.2): y within 1e-5
+    elementwise of the same function on the CPU, dx and dalpha within 1e-5
+    of their norms (the card's and the CPU's powf round apart: at alpha
+    near 1.2, p = z^5, elementwise dx read 3.1e-5 apart on an H100;
+    dalpha sums up to 524,288 columns); no kernel launches; the card's
+    wall ms of forward and backward."""
+    from armnet_tpu_torch.ops.entmax import entmax_bisect
+
+    g = torch.Generator().manual_seed(SEED + 9)
+    x = torch.randn(CRITEO_SHAPE, generator=g) * 3.0
+    dy = torch.randn(CRITEO_SHAPE, generator=g)
+    for kind, alpha in (("scalar", torch.tensor(1.5)),
+                        ("per_column", 1.2 + torch.rand(
+                            (1, 1, CRITEO_SHAPE[2]), generator=g))):
+        res = {}
+        for device in ("cuda", "cpu"):
+            xd = x.to(device, copy=True).requires_grad_()
+            ad = alpha.to(device, copy=True).requires_grad_()
+            zero_counts()
+            t0 = time.perf_counter()
+            y = entmax_bisect(xd, ad, axis=1)
+            y.backward(dy.to(device))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            res[device] = (y.detach().cpu(), xd.grad.cpu(), ad.grad.cpu(),
+                           (time.perf_counter() - t0) * 1e3, read_counts())
+        (yg, dxg, dag, ms, counts), (yc, dxc, dac, cpu_ms, _) = (
+            res["cuda"], res["cpu"])
+        errs = {"y": float((yg - yc).abs().max()),
+                "dx": float((dxg - dxc).abs().max()),
+                "dx_rel": float((dxg - dxc).norm() / dxc.norm()),
+                "dalpha_rel": float((dag - dac).norm() / dac.norm())}
+        log("entmax_alpha", alpha=kind, shape=list(CRITEO_SHAPE), axis=1,
+            alpha_shape=list(alpha.shape), **errs, launches=counts,
+            card_ms=ms, cpu_ms=cpu_ms, dalpha_norm=float(dac.norm()),
+            tol="y 1e-5 elementwise; dx and dalpha 1e-5 of their norms")
+        check(all(v == 0 for v in counts.values()),
+              f"learned-alpha entmax launched kernels: {counts}")
+        check(errs["y"] <= 1e-5 and errs["dx_rel"] <= 1e-5
+              and errs["dalpha_rel"] <= 1e-5,
+              f"learned-alpha entmax, {kind} alpha, card vs CPU: {errs}")
+
+
 def main():
-    phase_device()
+    smi = phase_device()
     # full-f32 GEMMs on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1772,6 +2207,12 @@ def main():
             runs.append(phase_frappe_zoo(tmp))
         with timed("criteo_zoo"):
             runs.append(phase_criteo_zoo(tmp, data, first, inp))
+        with timed("uci_train"):
+            runs.append(phase_uci_train(tmp))
+        with timed("bf16"):
+            runs.append(phase_bf16(tmp, smi))
+    with timed("entmax_alpha"):
+        phase_entmax_alpha()
     log("seconds", **SECONDS)
     log("profiler", empty_sessions=bench.EMPTY_SESSIONS,
         tries_per_profile=bench.PROFILE_TRIES)
@@ -1787,12 +2228,14 @@ def main():
          "shape": dict(zip("BFEDO", CRITEO_ARM)), "alpha": 2.0,
          "also_source": f"armnet_tpu_torch/kernels/csrc/{col}",
          "diabetes": {"shape": dict(zip("BFEDO", DIABETES_ARM)),
-                      "alpha": 1.7, **arm[(kind, 1.7, "diabetes")]}}
+                      "alpha": 1.7, **arm[(kind, 1.7, "diabetes")]},
+         "uci": {"shape": dict(zip("BFEDO", UCI_ARM)), "alpha": 1.7,
+                 **arm[(kind, 1.7, "uci")]}}
         for kind, line, source, col in (
             ("fwd", 184, "arm1h.cu", "arm1h_col.cu"),
             ("bwd", 211, "arm1h_bwd.cuh", "arm1h_bwd_col.cu"))]
 
-    crit = tg["criteo_batch"]
+    crit, uci = tg["criteo_batch"], tg["uci_16_live"]
     zipf = {k[len("zipf_"):]: {"table_grad_ms": v["whole_ms"],
                                "library_ms": v["library_ms"]}
             for k, v in tg.items() if k.startswith("zipf_")}
@@ -1857,7 +2300,16 @@ def main():
              "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
              "library_ms": w["library_ms"],
              "library_host_incl_ms": w["library_host_incl_ms"]}
-             for e in ZOO_WIDTHS for w in (tg[f"criteo_batch_e{e}"],)}},
+             for e in ZOO_WIDTHS for w in (tg[f"criteo_batch_e{e}"],)},
+         "uci_16_live": {
+             "shape": [UCI_BATCH * UCI_FIELDS, 10], "nrows": UCI_NFEAT,
+             "live_rows": UCI_FIELDS, "ms": uci["kernel_ms"],
+             "table_grad_ms_with_sort": uci["whole_ms"],
+             "host_incl_ms": uci["whole_host_incl_ms"],
+             "table_grad_sort_ms": uci["sort_ms"],
+             "plain_ms": uci["plain_ms"], "bound_ms": uci["bound_ms"],
+             "bound_by": uci["bound_by"], "library_ms": uci["library_ms"],
+             "library_host_incl_ms": uci["library_host_incl_ms"]}},
         *arm_lines,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

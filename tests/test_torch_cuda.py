@@ -5,7 +5,8 @@ backward, and one train step on the card against the same step on the
 CPU, through the composed and the fused interaction; the entmax kernels at
 the multi-head channel counts; for every other zoo model eval logits and
 one train step against the CPU with the kernels it launches, and AFN's
-table gradient through its clamp-abs.
+table gradient through its clamp-abs; the learned-alpha entmax on the card
+against the CPU, and a --bf16 train step against the CPU's.
 
 Skipped where CUDA is absent. On a GPU machine, from the repository root:
 
@@ -727,3 +728,61 @@ def test_afn_table_gradient_through_where_abs(cuda):
     assert torch.equal(gg == 0, gc == 0) and float(gc.abs().max()) > 0
     gap = float((gg - gc).norm())
     assert gap <= 1e-6 * gc.numel() ** 0.5 + 1e-4 * float(gc.norm()), gap
+
+
+@pytest.mark.parametrize("axis,ashape", [(1, ()), (1, (1, 1, 16)),
+                                         (-1, (8, 13, 1))])
+def test_learned_alpha_on_the_card_matches_cpu(cuda, axis, ashape):
+    """A tensor alpha runs the same torch ops on the card as on the CPU
+    (no kernel launch): y, dx within 1e-5, dalpha within 1e-5 of its
+    norm."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((8, 13, 16), generator=g) * 3.0
+    dy = torch.randn((8, 13, 16), generator=g)
+    alpha = 1.2 + torch.rand(ashape, generator=g)
+    out = {}
+    before = (entmax_cuda.LAUNCHES, entmax_cuda.BWD_LAUNCHES)
+    for device in (cuda, torch.device("cpu")):
+        xd = x.to(device, copy=True).requires_grad_()
+        ad = alpha.to(device, copy=True).requires_grad_()
+        y = entmax_bisect(xd, ad, axis=axis)
+        y.backward(dy.to(device))
+        out[device.type] = (y.detach().cpu(), xd.grad.cpu(), ad.grad.cpu())
+    assert (entmax_cuda.LAUNCHES, entmax_cuda.BWD_LAUNCHES) == before
+    (yg, dxg, dag), (yc, dxc, dac) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(yg, yc, rtol=0, atol=1e-5)
+    torch.testing.assert_close(dxg, dxc, rtol=0, atol=1e-5)
+    assert float((dag - dac).norm()) <= 1e-5 * float(dac.norm())
+
+
+@pytest.mark.parametrize("model,kernels", [("armnet_1h", "auto"),
+                                           ("armnet_1h", "pallas-fused"),
+                                           ("armnet", "auto"),
+                                           ("dnn", "auto")])
+def test_bf16_train_step_on_the_card(cuda, model, kernels):
+    """One --bf16 train step on the card against the same step on the CPU:
+    the logits in the same dtype, the loss within 2e-2 (the card's and the
+    CPU's bfloat16 GEMMs round apart), finite float32 gradients."""
+    cfg = ModelConfig(model=model, nfeat=600, nfield=5, nemb=4, h=8,
+                      nattn_head=2, mlp_nlayer=2, mlp_nhid=16, alpha=1.7)
+    rng = np.random.RandomState(4)
+    batch = {"id": torch.from_numpy(rng.randint(0, 600, (64, 5))),
+             "value": torch.from_numpy(rng.uniform(0.1, 1.0, (64, 5))
+                                       .astype(np.float32)),
+             "y": torch.from_numpy((rng.rand(64) < 0.4).astype(np.float32)),
+             "mask": torch.ones(64)}
+    state = create_model(cfg, seed=1).state_dict()
+    res = {}
+    for device in (cuda, torch.device("cpu")):
+        m = create_model(cfg, kernels=kernels, dtype=torch.bfloat16)
+        m.load_state_dict(state)
+        m.to(device)
+        loss, logits = forward_loss(m, {k: v.to(device)
+                                        for k, v in batch.items()})
+        loss.backward()
+        grads = [p.grad for p in m.parameters() if p.grad is not None]
+        assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+                   for g in grads)
+        res[device.type] = (loss.item(), logits.dtype)
+    assert res["cuda"][1] == res["cpu"][1]
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 2e-2 * abs(res["cpu"][0])

@@ -155,13 +155,19 @@ def test_kernel_build_raises_without_cuda_toolkit():
 
 
 def test_entmax_rejects_what_is_not_ported():
-    """alpha <= 1 and a learned (tensor) alpha still raise; the backward is
-    ported: a requires_grad input gets the plain VJP as its gradient."""
+    """A static alpha <= 1 still raises; a learned (tensor) alpha now takes
+    the generic path: at a constant alpha it gives the static path's y,
+    and alpha gets a gradient. The backward is ported: a requires_grad
+    input gets the plain VJP as its gradient."""
     x = torch.randn(3, 4)
     with pytest.raises(ValueError):
         entmax_bisect(x, 1.0)
-    with pytest.raises(NotImplementedError, match="learned"):
-        entmax_bisect(x, torch.tensor(1.5))
+    alpha = torch.tensor(1.5, requires_grad=True)
+    y = entmax_bisect(x, alpha)
+    np.testing.assert_allclose(y.detach().numpy(),
+                               entmax_bisect(x, 1.5).numpy(), atol=1e-6)
+    (y * torch.arange(4.0)).sum().backward()
+    assert alpha.grad.shape == () and torch.isfinite(alpha.grad)
     x = torch.from_numpy(_x((3, 4), seed=8)).requires_grad_()
     dy = torch.from_numpy(_x((3, 4), seed=9))
     y = entmax_bisect(x, 1.5)
@@ -286,3 +292,69 @@ def test_n_iter_is_capped_at_f32_convergence():
     x = torch.from_numpy(_x((6, 11), seed=6))
     np.testing.assert_array_equal(entmax_bisect(x, 2.0, n_iter=50).numpy(),
                                   entmax_bisect(x, 2.0, n_iter=30).numpy())
+
+
+# learned (tensor) alpha: (x shape, axis, alpha shape), alpha broadcast to x
+# with `axis` collapsed: a scalar, one per row of a 2-D input, and one per
+# column of the [B, F, C] gates over fields (axis 1)
+ALPHA_CASES = [((8, 13), -1, ()), ((8, 13), -1, (8, 1)),
+               ((6, 9, 7), 1, ()), ((6, 9, 7), 1, (1, 1, 7)),
+               ((6, 9, 7), 1, (6, 1, 7)), ((6, 9, 7), -1, (6, 9, 1))]
+
+
+@pytest.mark.parametrize("shape,axis,ashape", ALPHA_CASES)
+def test_learned_alpha_matches_jax(shape, axis, ashape):
+    """y, dx and dalpha of a tensor alpha in (1.2, 2.4) against the JAX
+    entmax_bisect with an array alpha (its generic path, Tsallis term
+    included), within 1e-5; dalpha keeps alpha's shape."""
+    rng = np.random.RandomState(len(shape) * 7 + len(ashape))
+    x = _x(shape, seed=21)
+    alpha = np.asarray(1.2 + 1.2 * rng.rand(*ashape), np.float32)
+    dy = _x(shape, seed=22, scale=1.0)
+    yj, vjp = jax.vjp(lambda v, a: jax_entmax_bisect(v, a, axis=axis),
+                      jnp.asarray(x), jnp.asarray(alpha))
+    dxj, daj = vjp(jnp.asarray(dy))
+    xt = torch.from_numpy(x).requires_grad_()
+    at = torch.from_numpy(alpha).requires_grad_()
+    yt = entmax_bisect(xt, at, axis=axis)
+    yt.backward(torch.from_numpy(dy))
+    assert at.grad.shape == alpha.shape
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), atol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dxj), atol=1e-5)
+    np.testing.assert_allclose(at.grad.numpy(), np.asarray(daj), atol=1e-5)
+
+
+@pytest.mark.parametrize("a0", [1.3, 1.6, 2.0])
+def test_learned_alpha_gradient_finite_difference(a0):
+    """dalpha against a central difference of the loss in alpha (eps 1e-3,
+    atol 5e-3, as tests/test_entmax.py checks the JAX package's)."""
+    x = torch.from_numpy(_x((8, 6), seed=6, scale=1.0))
+    w = torch.arange(6.0)
+
+    def loss(a):
+        return (entmax_bisect(x, a).square() * w).sum()
+
+    alpha = torch.tensor(a0, requires_grad=True)
+    loss(alpha).backward()
+    eps = 1e-3
+    fd = (float(loss(torch.tensor(a0 + eps)))
+          - float(loss(torch.tensor(a0 - eps)))) / (2 * eps)
+    np.testing.assert_allclose(float(alpha.grad), fd, atol=5e-3)
+
+
+def test_learned_alpha_takes_no_kernel_and_casts_back():
+    """A tensor alpha runs torch ops on every device (no entmax kernel is
+    launched, as the JAX package runs it in XLA ops); the solve is float32
+    and y takes x's dtype."""
+    before = (entmax_cuda.LAUNCHES, entmax_cuda.BWD_LAUNCHES)
+    x = torch.from_numpy(_x((4, 9, 5), seed=23)).to(torch.bfloat16)
+    x.requires_grad_()
+    alpha = torch.full((1, 1, 5), 1.5, requires_grad=True)
+    y = entmax_bisect(x, alpha, axis=1)
+    assert y.dtype == torch.bfloat16
+    y.float().sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and alpha.grad.shape == (1, 1, 5)
+    assert (entmax_cuda.LAUNCHES, entmax_cuda.BWD_LAUNCHES) == before
+    want = entmax_bisect(x.detach().float(), 1.5, axis=1)
+    np.testing.assert_allclose(y.detach().float().numpy(), want.numpy(),
+                               atol=4e-3)

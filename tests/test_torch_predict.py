@@ -98,12 +98,23 @@ def test_device_defaults_to_cuda_and_never_falls_back(served):
 
 @pytest.mark.parametrize("case", ["bf16", "xla", "pallas", "pallas-fused"])
 def test_bf16_and_pallas_kernels_raise(served, case):
-    """--bf16 and a sidecar's "kernels": "xla" still raise; a sidecar's
-    "pallas" (the per-op kernels) and "pallas-fused" (the fused ARM-1h
-    kernels) now score, with the JAX model's probabilities."""
+    """A sidecar's "kernels": "xla" still raises; --bf16 scores in
+    bfloat16, within a bfloat16 tolerance (2e-2, five ulps) of the float32
+    JAX model's probabilities; a sidecar's "pallas" (the per-op kernels)
+    and "pallas-fused" (the fused ARM-1h kernels) score with the JAX
+    model's probabilities."""
     if case == "bf16":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            predict.main(_argv(served, "--bf16"))
+        out = str(served["tmp"] / "bf16.scores")
+        summary = predict.main(_argv(served, "--bf16", "--output", out))
+        assert summary["rows"] == NROWS
+        lg = served["logits"]
+        if served["noutput"] == 1:
+            want = 1.0 / (1.0 + np.exp(-lg))
+        else:
+            e = np.exp(lg - lg.max(-1, keepdims=True))
+            want = e / e.sum(-1, keepdims=True)
+        got = np.loadtxt(out, ndmin=2).reshape(want.shape)
+        np.testing.assert_allclose(got, want, atol=2e-2)
         return
     meta_path = os.path.join(served["root"], "best.meta.json")
     with open(meta_path) as f:

@@ -510,15 +510,28 @@ def test_cli_trains_on_the_cpu_and_predict_scores_it(tmp_path, capsys):
 
 
 def test_cli_raises_on_what_is_not_ported(tmp_path):
+    """An *.arff folder now trains (the UCI multi-class path, 3 classes:
+    a 3-way head over its 2 fields); --mesh and a missing CUDA still
+    raise."""
     data = tmp_path / "data"
     write_split(str(data / "tiny"), seed=5)
     (data / "uci").mkdir()
-    (data / "uci" / "x.arff").write_text("@relation x\n")
+    rows = "\n".join(f"{i % 7}.5,{i % 5}.0,{i % 3}" for i in range(30))
+    (data / "uci" / "uci.arff").write_text(
+        "@relation uci\n@attribute a numeric\n@attribute b numeric\n"
+        "@attribute clase {0,1,2}\n@data\n" + rows + "\n")
+    (data / "uci" / "conxuntos.dat").write_text(
+        " ".join(map(str, range(20))) + "\n"
+        + " ".join(map(str, range(20, 30))) + "\n")
     base = ["--model", "armnet_1h", "--nfeat", str(NFEAT), "--nfield",
             str(NFIELD), "--data_dir", str(data), "--log_dir",
             str(tmp_path / "log"), "--device", "cpu", "--epoch", "1"]
-    with pytest.raises(NotImplementedError, match="UCI"):
-        cli.main(base + ["--dataset", "uci"])
+    res = cli.main(base + ["--dataset", "uci", "--batch_size", "8", "--h",
+                           "4", "--valid_perc", "0.25", "--ckpt_dir",
+                           str(tmp_path / "ckpt")])
+    assert [r[0] for r in res] == [2025] and 0.0 <= res[0][1] <= 1.0
+    meta = load_checkpoint(str(tmp_path / "ckpt" / "test_2025"))[1]
+    assert (meta["config"]["noutput"], meta["config"]["nfield"]) == (3, 2)
     with pytest.raises(NotImplementedError, match="mesh"):
         cli.main(base + ["--dataset", "tiny", "--mesh", "data:2"])
     if not torch.cuda.is_available():
