@@ -119,7 +119,7 @@ class UCIDataset:
         return self.labels.shape[0]
 
 
-def uci_loader(data_dir, batch_size, valid_perc=0.0, seed=0):
+def uci_loader(data_dir, batch_size, valid_perc=0.0, seed=0, device=None):
     """(train, valid, test) BatchIterators for a UCI folder, each carrying
     `nclass`.
 
@@ -127,7 +127,8 @@ def uci_loader(data_dir, batch_size, valid_perc=0.0, seed=0):
     RandomState(0) whatever the run's seed; at valid_perc == 0 the valid
     loader aliases the train split (with a warning), so early stopping
     then selects on training accuracy. The scaler is fit on train only and
-    applied to every split; the train iterator shuffles per epoch.
+    applied to every split; the train iterator shuffles per epoch. The
+    iterators hand over tensors on `device`.
     """
     Xtr, ytr, nclass = load_uci_dataset(data_dir, train=True)
     if valid_perc > 0.0:
@@ -140,18 +141,20 @@ def uci_loader(data_dir, batch_size, valid_perc=0.0, seed=0):
         Xva, yva = None, None
 
     scaler = Standardizer(Xtr)
-    train = BatchIterator(UCIDataset(scaler(Xtr), ytr), batch_size, True, seed)
+    train = BatchIterator(UCIDataset(scaler(Xtr), ytr), batch_size, True, seed,
+                          device)
     if Xva is not None:
         valid = BatchIterator(UCIDataset(scaler(Xva), yva), batch_size, False,
-                              seed)
+                              seed, device)
     else:
         warnings.warn(
             "valid_perc=0: the validation loader aliases the TRAIN split; "
             "early stopping will select on training accuracy; pass "
             "--valid_perc to carve a real validation split", stacklevel=2)
-        valid = BatchIterator(train.ds, batch_size, False, seed)
+        valid = BatchIterator(train.ds, batch_size, False, seed, device)
     Xte, yte, _ = load_uci_dataset(data_dir, train=False)
-    test = BatchIterator(UCIDataset(scaler(Xte), yte), batch_size, False, seed)
+    test = BatchIterator(UCIDataset(scaler(Xte), yte), batch_size, False, seed,
+                         device)
 
     train.nclass = valid.nclass = test.nclass = nclass
     return train, valid, test

@@ -39,12 +39,15 @@ def embedding_positivity(model):
 
 class AFN(nn.Module):
 
+    table_name = "embedding"          # gathered through self.lookup
+
     def __init__(self, nfield, nfeat, nemb, afn_hid, mlp_nlayer, mlp_nhid,
                  dropout, ensemble, deep_nlayer, deep_nhid, noutput=1,
                  generator=None):
         super().__init__()
         g = generator if generator is not None else torch.Generator()
         self.embedding = nn.Parameter(init.xavier_uniform((nfeat, nemb), g))
+        self.lookup = embedding_bag       # the trainer may shard the table
         self.emb_bn = BatchNorm(nfield, channel_axis=1, device=g.device)
         self.afn_kernel = nn.Parameter(
             init.normal_unit((nfield, afn_hid), g) * 0.1)
@@ -62,7 +65,7 @@ class AFN(nn.Module):
         values = values.clamp(*VALUE_CLAMP)
         pos_abs = self.embedding.abs()
         table = torch.where(pos_abs >= POSITIVE_MIN, pos_abs, POSITIVE_MIN)
-        emb = embedding_bag(table, ids, values)                  # [B, F, E]
+        emb = self.lookup(table, ids, values)                    # [B, F, E]
         x_log = self.emb_bn(torch.log(emb)).transpose(1, 2)      # [B, E, F]
         afn = torch.exp(torch.matmul(x_log, self.afn_kernel) + self.afn_bias)
         afn = self.afn_bn(afn.transpose(1, 2))                   # [B, h, E]

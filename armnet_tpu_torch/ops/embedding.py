@@ -13,6 +13,15 @@ dvalues = sum_e dout * emb (from the saved gathered rows), and the table
 gradient is the dense [R, E] scatter-add of dout * values at the ids,
 through the table_grad CUDA kernel on a CUDA tensor or its plain version
 (index_add_) on a CPU tensor (kernels/scatter_cuda.py).
+
+Where the JAX package dispatches scaled_embedding_lookup to a sharded
+lookup through a thread-local context, the port keeps no global state:
+each table module gathers through its own `lookup` attribute
+(ops/layers.py Embedding and FeaturesLinear, AFN's table), embedding_bag
+by default, and the trainer's sharding step sets the sharded exchange
+with its mesh and capacity on each sharded table
+(parallel/sharding.shard_tables; parallel/embedding_parallel.py, whose
+backward runs table_grad into the row block).
 """
 
 import torch

@@ -37,6 +37,7 @@ from torch import nn
 
 from armnet_tpu_torch.ops import initializers as init
 from armnet_tpu_torch.ops.embedding import embedding_bag
+from armnet_tpu_torch.parallel.mesh import all_reduce_sum
 
 __all__ = ["TorchLinear", "BatchNorm", "Dropout", "Embedding",
            "FeaturesLinear", "fm_pool", "MLP", "SelfAttnLayer",
@@ -54,14 +55,17 @@ _scope = threading.local()
 
 
 @contextmanager
-def batch_mask_scope(mask):
-    """Expose the batch validity mask [B] to BatchNorm during a forward."""
-    prev = getattr(_scope, "mask", None)
-    _scope.mask = mask
+def batch_mask_scope(mask, group=None):
+    """Expose the batch validity mask [B] to BatchNorm during a forward.
+    With a process group (the data group of a data-parallel step) the
+    masked statistics are taken over the group's global batch: their sums
+    go through a differentiable all-reduce."""
+    prev = getattr(_scope, "mask", None), getattr(_scope, "group", None)
+    _scope.mask, _scope.group = mask, group
     try:
         yield
     finally:
-        _scope.mask = prev
+        _scope.mask, _scope.group = prev
 
 
 def current_batch_mask():
@@ -167,11 +171,14 @@ class BatchNorm(nn.Module):
             mean = xf.mean(red)
             var = (xf - mean.view(bshape)).square().mean(red)
             return mean, var, n / max(n - 1, 1)
+        group = getattr(_scope, "group", None)
         spatial = math.prod(x.shape[i] for i in red if i != 0)
         w = mask.to(xf.dtype).view([x.shape[0]] + [1] * (x.ndim - 1))
-        n = torch.clamp_min(mask.to(xf.dtype).sum(), 1.0) * spatial
-        mean = (xf * w).sum(red) / n
-        var = ((xf - mean.view(bshape)).square() * w).sum(red) / n
+        n = torch.clamp_min(all_reduce_sum(mask.to(xf.dtype).sum(), group),
+                            1.0) * spatial
+        mean = all_reduce_sum((xf * w).sum(red), group) / n
+        var = all_reduce_sum(
+            ((xf - mean.view(bshape)).square() * w).sum(red), group) / n
         return mean, var, n / torch.clamp_min(n - 1, 1.0)
 
     def forward(self, x):
@@ -215,16 +222,21 @@ class Dropout(nn.Module):
 class Embedding(nn.Module):
     """Value-scaled embedding table [nfeat, nemb], xavier_uniform init; the
     output is cast to `compute_dtype` (float32, or bfloat16 under --bf16),
-    the one cast of the compute-dtype contract."""
+    the one cast of the compute-dtype contract. The table is gathered
+    through `lookup` (embedding_bag; the trainer sets a sharded exchange
+    where it row-shards the table, parallel/sharding.py)."""
+
+    table_name = "weight"
 
     def __init__(self, nfeat, nemb, generator):
         super().__init__()
         self.compute_dtype = torch.float32
+        self.lookup = embedding_bag
         self.weight = nn.Parameter(init.xavier_uniform((nfeat, nemb),
                                                        generator))
 
     def forward(self, ids, values):
-        return embedding_bag(self.weight, ids, values).to(self.compute_dtype)
+        return self.lookup(self.weight, ids, values).to(self.compute_dtype)
 
 
 class FeaturesLinear(nn.Module):
@@ -232,15 +244,18 @@ class FeaturesLinear(nn.Module):
     default, which the reference never re-inits; not xavier) gathered and
     value-scaled by embedding_bag, so its gradient is the table-gradient
     kernel at E = 1 on the card; summed over fields plus a zero-init bias
-    [1]."""
+    [1]. The weight is gathered through `lookup`, as Embedding's table."""
+
+    table_name = "weight"
 
     def __init__(self, nfeat, generator):
         super().__init__()
+        self.lookup = embedding_bag
         self.weight = nn.Parameter(init.normal_unit((nfeat, 1), generator))
         self.bias = nn.Parameter(init.zeros((1,), generator.device))
 
     def forward(self, ids, values):
-        w = embedding_bag(self.weight, ids, values)            # [B, F, 1]
+        w = self.lookup(self.weight, ids, values)              # [B, F, 1]
         return w[..., 0].sum(1) + self.bias[0]
 
 

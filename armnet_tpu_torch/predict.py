@@ -10,7 +10,10 @@ Output: `--output` (default `<input>.scores`; '-' = stdout, and the summary
 then goes to stderr) with one line per real row: the sigmoid probability,
 or space-separated class probabilities for a `noutput > 1` head. The
 one-line JSON summary carries `auc` (binary, both classes present) or
-`accuracy` (multi-class), and the scoring loop's wall time. A checkpoint
+`accuracy` (multi-class), the scoring loop's wall time, and how the input
+was read (`parse_route`: the row cache or a parser, and `parse_seconds`;
+data/libsvm.py); the batches reach the device through the iterator's
+lookahead. A checkpoint
 trained with --bf16 scores in bfloat16 (restored from its sidecar).
 """
 
@@ -89,7 +92,8 @@ def load_model(root, tag, cfg, device):
 
 @torch.inference_mode()
 def score(model, loader, device):
-    """(logits, labels, masks) on `device` over every batch of `loader`."""
+    """(logits, labels, masks) on `device` over every batch of `loader`
+    (a loader that hands over batches elsewhere is copied from)."""
     logits, labels, masks = [], [], []
     for batch in loader:
         dev = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
@@ -131,7 +135,8 @@ def main(argv=None):
     set_matmul_precision(cfg.matmul_precision)
 
     inp = _resolve_input(cfg, inp)
-    loader = BatchIterator(LibsvmDataset(inp, cfg.nfield), cfg.batch_size)
+    ds = LibsvmDataset(inp, cfg.nfield)
+    loader = BatchIterator(ds, cfg.batch_size, device=device)
     model = load_model(root, tag, cfg, device)
 
     t0 = time.perf_counter()
@@ -156,7 +161,8 @@ def main(argv=None):
     summary = {"input": inp, "rows": int(real.sum()),
                "checkpoint": os.path.abspath(ckpt), "tag": tag,
                "model": cfg.model, "output": outp, "device": str(device),
-               "batches": len(loader), "score_seconds": seconds}
+               "batches": len(loader), "score_seconds": seconds,
+               "parse_route": ds.route, "parse_seconds": ds.parse_seconds}
     if multiclass:
         summary["accuracy"] = round(float(masked_accuracy(
             logits, labels, masks)), 6)

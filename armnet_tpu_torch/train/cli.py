@@ -24,6 +24,19 @@ metadata keeps it for predict). `--matmul_precision high` lets float32
 GEMMs use TF32 (default and highest keep full f32), and `--debug_nans`
 stops training with FloatingPointError at the first step whose loss or
 gradients hold a NaN or an infinity.
+
+Multi-process training, under torchrun (its environment starts the process
+group: NCCL on cuda:LOCAL_RANK, gloo with --device cpu):
+
+    torchrun --nproc_per_node 2 -m armnet_tpu_torch.train --device cpu \
+        --mesh data:1,model:2 --shard_embedding ...
+
+The mesh (--mesh, default every process on 'data') places each rank; each
+process of the data group parses its byte-range shard of every split (the
+ranks of one data row read the same rows), and the batches are its rows of
+the global batch. Each rank logs to its own file (rank 0 to stdout.log,
+rank r to stdout.p<r>.log); rank 0 writes metrics.jsonl and the
+checkpoints.
 """
 
 import glob
@@ -31,9 +44,13 @@ import os
 
 import numpy as np
 
+import torch.distributed as dist
+
 from armnet_tpu_torch import resolve_device, set_matmul_precision
 from armnet_tpu_torch.data.libsvm import make_dataloaders
 from armnet_tpu_torch.data.uci import uci_loader
+from armnet_tpu_torch.parallel.mesh import (make_mesh,
+                                            maybe_initialize_distributed)
 from armnet_tpu_torch.train.checkpoint import restore_checkpoint
 from armnet_tpu_torch.train.loop import Trainer
 from armnet_tpu_torch.utils.config import (ExperimentConfig, build_arg_parser,
@@ -48,12 +65,32 @@ def main(argv=None):
     cfg = ExperimentConfig(**vars(build_arg_parser().parse_args(argv)))
     check_supported(cfg)
     resolve_device(cfg.device)        # raises before any work without CUDA
+    started = maybe_initialize_distributed(cfg.device)
+    try:
+        return _main(cfg)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _main(cfg):
+    device = resolve_device(cfg.device)
     set_matmul_precision(cfg.matmul_precision)
+    mesh = (make_mesh(cfg.mesh) if cfg.mesh or dist.is_initialized()
+            else None)
+    # the model ranks of one data row read the same rows
+    shard = (None if mesh is None or not mesh.distributed
+             else (mesh.data_index, mesh.data_size))
+    rank = 0 if mesh is None else mesh.rank
 
     base = os.path.join(cfg.data_dir, cfg.dataset)
     if glob.glob(os.path.join(base, "*.arff")):
         train_loader, val_loader, test_loader = uci_loader(
-            base, cfg.batch_size, valid_perc=cfg.valid_perc, seed=cfg.seed)
+            base, cfg.batch_size, valid_perc=cfg.valid_perc, seed=cfg.seed,
+            device=device)
+        if shard is not None:
+            for loader in (train_loader, val_loader, test_loader):
+                loader.data_parallel = shard
         # every UCI set, a binary one too, takes the softmax-CE + accuracy
         # head; the table keeps nfeat rows, nfield of them live
         nclass, nfield = train_loader.nclass, train_loader.ds.nfield
@@ -64,14 +101,18 @@ def main(argv=None):
     else:
         train_loader, val_loader, test_loader = make_dataloaders(
             cfg.dataset, cfg.data_dir, cfg.nfield, cfg.batch_size,
-            seed=cfg.seed)
+            seed=cfg.seed, shard=shard, device=device,
+            group=None if mesh is None else mesh.data_group)
 
     results = []
     for seed in range(cfg.seed, cfg.seed + cfg.repeat):
         seed_everything(seed)
         exp_name = f"{cfg.exp_name}_{seed}"
-        logger = get_logger(os.path.join(cfg.log_dir, exp_name, "stdout.log"),
-                            to_stdout=True, name=f"armnet_tpu_torch.{exp_name}")
+        log_name = "stdout.log" if rank == 0 else f"stdout.p{rank}.log"
+        logger = get_logger(os.path.join(cfg.log_dir, exp_name, log_name),
+                            to_stdout=rank == 0,
+                            name=f"armnet_tpu_torch.{exp_name}"
+                            + (f".p{rank}" if rank else ""))
         logger.info(f"=> creating model {cfg.model}")
         logger.info(str(vars(cfg)))
         # the shuffle follows the active seed, from epoch 0, so a repeat's
@@ -83,9 +124,11 @@ def main(argv=None):
         trainer = Trainer(
             cfg, train_loader, val_loader, test_loader, logger, seed=seed,
             ckpt_dir=ckpt_dir,
-            metrics_path=os.path.join(cfg.log_dir, exp_name, "metrics.jsonl"))
+            metrics_path=(os.path.join(cfg.log_dir, exp_name, "metrics.jsonl")
+                          if rank == 0 else None), mesh=mesh)
         if cfg.resume:
-            extra = restore_checkpoint(cfg.resume, trainer.state)
+            extra = restore_checkpoint(cfg.resume, trainer.state, mesh=mesh,
+                                       sharded=trainer.sharded)
             logger.info(f"resumed from {cfg.resume}: {extra}")
         best_valid, best_test = trainer.fit(
             epochs=cfg.epoch, patience=cfg.patience, eval_freq=cfg.eval_freq,
@@ -93,7 +136,7 @@ def main(argv=None):
         results.append((seed, best_valid, best_test))
         remove_logger(logger)
 
-    if len(results) > 1:
+    if len(results) > 1 and rank == 0:
         valids = np.array([r[1] for r in results])
         tests = np.array([r[2] for r in results])
         summary = (f"repeat summary over seeds "

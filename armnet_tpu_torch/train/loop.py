@@ -14,7 +14,18 @@ Semantics kept from the JAX trainer (and the reference's train.py):
     first epoch is shuffled with RandomState(seed + 1) in both packages.
 
 Meters stay on the device and are read only at report and epoch ends.
-Multi-device runs (--mesh, --shard_embedding) are not ported yet.
+The loaders hand over batches on the trainer's device (data/libsvm.py's
+lookahead); the loop copies nothing.
+
+Multi-process runs (a mesh over torch.distributed, --mesh and
+--shard_embedding; parallel/): every rank builds the full model from the
+run's seed; with --shard_embedding and a model axis > 1 each table of the
+sharding rule keeps this rank's row block and gathers through the psum or
+a2a exchange (--embedding_exchange); --embedding_capacity_factor <= 0
+sizes the a2a buckets from the first train batches' ids, the largest
+factor over the processes. The a2a exchange's dropped requests are counted
+in the `overflow_sum` meter and warned at the end of a pass. Checkpoints
+are written by rank 0 in the single-process layout (train/checkpoint.py).
 """
 
 import json
@@ -24,6 +35,11 @@ import torch
 
 from armnet_tpu_torch import resolve_device
 from armnet_tpu_torch.models import create_model, param_transform_for
+from armnet_tpu_torch.parallel.embedding_parallel import (
+    a2a_overflow_count, required_capacity_factor)
+from armnet_tpu_torch.parallel.mesh import (MODEL_AXIS, all_reduce_values,
+                                            make_mesh, multi_process)
+from armnet_tpu_torch.parallel.sharding import shard_tables
 from armnet_tpu_torch.train.checkpoint import save_checkpoint
 from armnet_tpu_torch.train.step import (create_train_state, init_meters,
                                          make_eval_step, make_train_step,
@@ -49,7 +65,6 @@ def run_epoch(epoch, state, loader, logger, *, device, train_step=None,
     nbatch = len(loader)
 
     for batch_idx, batch in enumerate(loader):
-        batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
         if is_train:
             meters = train_step(state, meters, batch)
         else:
@@ -76,6 +91,12 @@ def run_epoch(epoch, state, loader, logger, *, device, train_step=None,
     logger.info(f"{namespace}\tTime {time_since(s=time_avg.sum):>12s} "
                 f"{metric_name} {mean_auc:8.4f} "
                 f"Loss {m['loss_sum'] / w:8.4f}")
+    if m["overflow_sum"] > 0:
+        logger.warning(
+            f"{namespace}\ta2a embedding exchange dropped "
+            f"{m['overflow_sum']:.0f} requests to zero rows this epoch "
+            f"(capacity overflow); raise --embedding_capacity_factor or "
+            f"switch --embedding_exchange psum")
     return mean_auc
 
 
@@ -83,11 +104,7 @@ class Trainer:
     """Owns the model, optimizer and step, and the epoch/early-stop loop."""
 
     def __init__(self, config, train_loader, val_loader, test_loader, logger,
-                 seed=2025, ckpt_dir=None, metrics_path=None):
-        if config.mesh or config.shard_embedding:
-            raise NotImplementedError(
-                "--mesh and --shard_embedding (multi-device training) are "
-                "not ported yet; see ROADMAP.md")
+                 seed=2025, ckpt_dir=None, metrics_path=None, mesh=None):
         self.cfg = config
         self.loaders = (train_loader, val_loader, test_loader)
         self.logger = logger
@@ -97,12 +114,25 @@ class Trainer:
         self.profile_dir = config.profile_dir
         self.device = resolve_device(config.device)
 
+        for split, loader in zip(("train", "val", "test"), self.loaders):
+            ds = loader.ds
+            if hasattr(ds, "route"):
+                logger.info(f"{split} split: {len(ds)} rows of {ds.path} "
+                            f"read by {ds.route} in "
+                            f"{ds.parse_seconds:.3f} s")
+
         model = create_model(config, seed=seed, device=self.device,
                              kernels=config.kernels,
                              dtype=compute_dtype(config))
         # the JAX trainer draws one batch here (next(iter(train_loader))),
         # which advances the shuffle counter: keep its epoch schedule
         train_loader.epoch += 1
+        if mesh is None and (config.mesh or multi_process()):
+            mesh = make_mesh(config.mesh)
+        self.mesh = mesh
+        self.sharded, overflow_fn = [], None
+        if mesh is not None:
+            self.sharded, overflow_fn = self._shard(model, train_loader)
         self.state = create_train_state(model, config.lr)
         logger.info(f"=> created model {config.model} | parameters: "
                     f"{sum(p.numel() for p in model.parameters())}")
@@ -114,11 +144,51 @@ class Trainer:
         self.param_transform = param_transform_for(config.model)
         self.train_step = make_train_step(self.task, config.clip, generator,
                                           config.debug_nans,
-                                          self.param_transform)
+                                          self.param_transform, mesh,
+                                          overflow_fn)
         if config.debug_nans:
             logger.info("debug_nans enabled: a non-finite loss or gradient "
                         "stops training")
-        self.eval_step = make_eval_step(self.task)
+        self.eval_step = make_eval_step(self.task, mesh, overflow_fn)
+
+    def _shard(self, model, train_loader):
+        """Row-shard the model's tables over the mesh where asked; returns
+        (the sharded parameter names, the a2a overflow counter or None)."""
+        cfg, mesh, logger = self.cfg, self.mesh, self.logger
+        nshards = mesh.model_size
+        names, overflow_fn = [], None
+        if cfg.shard_embedding and nshards <= 1:
+            logger.warning(
+                "--shard_embedding requested but the mesh has no 'model' "
+                "axis > 1: every table stays REPLICATED; pass e.g. "
+                "--mesh data:-1,model:2 to shard")
+        elif cfg.shard_embedding:
+            impl = cfg.embedding_exchange
+            cap = float(cfg.embedding_capacity_factor)
+            if impl == "a2a" and cap <= 0:
+                # size the buckets from the first batches' ids, so skewed
+                # (power-law) ids drop nothing; every process must agree
+                ds, bsz = train_loader.ds, train_loader.bsz
+                nb = min(8, max(len(ds) // bsz, 1))
+                cap = (required_capacity_factor(
+                    [ds.ids[i * bsz:(i + 1) * bsz] for i in range(nb)],
+                    cfg.nfeat, mesh) if len(ds) else 4.0)
+                cap = all_reduce_values([cap], None, "max")[0]
+                logger.info(f"a2a capacity factor auto-sized to {cap:.2f} "
+                            f"(the first batches' id histogram, the largest "
+                            f"over the processes)")
+            names = shard_tables(model, mesh, cfg.nfeat, impl, cap)
+            if impl == "a2a" and names:
+                # every sharded table drops the same over-capacity
+                # requests: the count of one lookup times the tables
+                def overflow_fn(ids, mask):
+                    return a2a_overflow_count(
+                        ids, cfg.nfeat, mesh, mask=mask,
+                        capacity_factor=cap) * len(names)
+        logger.info(f"mesh {mesh.shape} (rank {mesh.rank}: data "
+                    f"{mesh.data_index}, {MODEL_AXIS} {mesh.model_index}) "
+                    f"| sharded tables: {names or 'none'}")
+        return names, overflow_fn
 
     def _save(self, epoch, valid_auc, test_auc):
         save_checkpoint(
@@ -126,7 +196,7 @@ class Trainer:
             optimizer=self.state.optimizer, step=self.state.step,
             extra={"epoch": epoch, "valid_auc": float(valid_auc),
                    "test_auc": float(test_auc), "seed": self.seed},
-            is_best=True)
+            is_best=True, mesh=self.mesh, sharded=self.sharded)
 
     def _train_epoch(self, epoch, epochs, eval_freq, report_freq):
         profiling = self.profile_dir and epoch == min(1, epochs - 1)

@@ -6,7 +6,9 @@ valid rows hold a single class, like the reference's exception path.
 
 The losses are means over the rows with mask > 0. They zero the pad rows
 with `where` before the sum, not with `* mask`: a pad row's logit may be
-non-finite, and inf * 0 = NaN would poison the batch loss.
+non-finite, and inf * 0 = NaN would poison the batch loss. `count` replaces
+the divisor (the local mask count): a data-parallel step passes the global
+count, so each process's loss is its share of the global mean.
 """
 
 import torch
@@ -16,23 +18,24 @@ __all__ = ["masked_roc_auc", "masked_accuracy", "masked_bce",
            "masked_softmax_ce"]
 
 
-def _masked_mean(losses, mask):
+def _masked_mean(losses, mask, count=None):
     losses = torch.where(mask > 0, losses, 0.0)
-    return losses.sum() / torch.clamp_min(mask.sum(), 1.0)
+    count = mask.sum() if count is None else count
+    return losses.sum() / torch.clamp_min(count, 1.0)
 
 
-def masked_bce(logits, labels, mask):
+def masked_bce(logits, labels, mask, count=None):
     """Mean sigmoid binary cross-entropy over valid rows
     (BCEWithLogitsLoss parity)."""
     return _masked_mean(F.binary_cross_entropy_with_logits(
-        logits.float(), labels.float(), reduction="none"), mask)
+        logits.float(), labels.float(), reduction="none"), mask, count)
 
 
-def masked_softmax_ce(logits, labels, mask):
+def masked_softmax_ce(logits, labels, mask, count=None):
     """Mean softmax cross-entropy over valid rows; logits [B, C], labels [B]
     class indices carried as floats in the batch schema."""
     return _masked_mean(F.cross_entropy(
-        logits.float(), labels.long(), reduction="none"), mask)
+        logits.float(), labels.long(), reduction="none"), mask, count)
 
 
 def masked_roc_auc(logits, labels, mask=None):

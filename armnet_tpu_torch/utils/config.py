@@ -5,9 +5,11 @@ either package restores through the same names. Differences: `--device`
 (default cuda) picks where the port runs, and `--kernels` takes `auto` and
 `pallas` (both the per-op kernels) and `pallas-fused` (the fused ARM-1h
 kernels), while `xla` raises; whether a tensor gets the kernel or its plain
-version follows its device. The multi-device flags
-(--mesh, --shard_embedding and the exchange options) are accepted, and the
-trainer raises NotImplementedError on them until that work is ported.
+version follows its device. The multi-process flags
+(--mesh, --shard_embedding, --embedding_exchange and
+--embedding_capacity_factor) act on a run under torchrun
+(parallel/, train/loop.py); --mesh alone, in one process, takes a mesh of
+one process.
 `--bf16` travels as `compute_dtype(cfg)` into models.create_model, as the
 kernel choice does, with no global state.
 """
@@ -20,6 +22,7 @@ import torch
 
 from armnet_tpu_torch.kernels.config import BACKENDS, use_fused_arm
 from armnet_tpu_torch.models.config import ModelConfig
+from armnet_tpu_torch.parallel.mesh import parse_mesh_spec
 
 __all__ = ["ExperimentConfig", "build_arg_parser", "check_supported",
            "compute_dtype"]
@@ -75,6 +78,10 @@ def check_supported(cfg):
             "PyTorch versions are not a backend (they run only on the CPU); "
             "take 'auto', 'pallas' or 'pallas-fused'")
     use_fused_arm(cfg.kernels)                 # raises on an unknown name
+    parse_mesh_spec(cfg.mesh)                  # raises on a malformed spec
+    if cfg.embedding_exchange not in ("psum", "a2a"):
+        raise ValueError(f"--embedding_exchange takes 'psum' or 'a2a', got "
+                         f"{cfg.embedding_exchange!r}")
 
 
 def build_arg_parser():

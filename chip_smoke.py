@@ -48,6 +48,13 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               db_armnet step [1024, 43, 32], alpha 1.7, and the UCI armnet
               step [512, 16, 512], alpha 1.7, beside the bound and the
               backward's blocks per SM
+     data_path  the libsvm parse routes on a seeded 100,000-row Criteo-
+              geometry file: seconds of the native parser (built with g++
+              from armnet_tpu_torch/data/csrc/), the vectorized numpy
+              parse, a row-cache miss and hit, and 4 byte-range shards;
+              equal arrays on every route, `native` as the route, and
+              malformed lines skipped as the line-by-line parser skips
+              them
   4. serve    armnet_tpu_torch.predict at the Criteo width of the
               cr_armnet1h preset (nfeat 2.1M, 39 fields, E=10, h=128, MLP
               2x500, alpha 2.0), ensemble off and on, on a seeded synthetic
@@ -65,7 +72,9 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               file: one K2 launch per batch and no K5, GPU vs CPU logits
   6. profile  torch.profiler over one warm Criteo-width scoring pass:
               device time by kernel and the device's busy share
-  7. train    armnet_tpu_torch.train.cli.main at cr_armnet1h widths,
+  7. train    (every train phase's batches reach the card through the
+              iterator's lookahead: pinned memory, a copy stream)
+              armnet_tpu_torch.train.cli.main at cr_armnet1h widths,
               ensemble off and on (the cr_armnet1h+ tower), and with the
               ensemble off under --kernels pallas-fused (K5 and K6 per
               step, no entmax launch), 2 epochs of 10 batches on seeded
@@ -73,6 +82,17 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               launches per train step and per eval batch, one step on the
               card against the same step on the CPU from the run's
               checkpoint, and warm train rows/s over whole epochs
+     feeds    warm train rows/s of cr_armnet1h with the batches fed
+              through the lookahead, through it with the prefetch thread
+              (ARMNET_PREFETCH_THREAD=1) and copied at the head of each
+              step (the loop before the lookahead), in turns
+     distributed  torchrun (one process, NCCL) of the training CLI at
+              cr_armnet1h width with --mesh data:1,model:1
+              --shard_embedding against the same run in this process:
+              per-step losses, the checkpoint's parameters (1e-6) and
+              predict's logits (1e-5); then in a one-process NCCL group
+              one train step per exchange with the table cut by
+              shard_tables (K7 into the shard) against the replicated step
      train_armnet  the same at the cr_armnet and cr_armnet+ widths under
               auto, and gc_arm with cr_armnet's flags under pallas-fused
               (K2, K4 and K7 a step, no K5/K6): launches, falling losses,
@@ -138,8 +158,10 @@ import json
 import math
 import os
 import subprocess
+import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1266,26 +1288,59 @@ def gpu_vs_cpu_step(ckpt, cfg, batch, enforce=True, pinned=False):
     return res
 
 
-def warm_train_rate(cfg, data, epochs=4, dataset="criteo", nfield=39):
+class HeadCopy:
+    """A CPU iterator's batches, each copied to the card at the head of its
+    step, as the train loop did before the lookahead."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield {k: v.to("cuda", non_blocking=True)
+                   for k, v in batch.items()}
+
+
+FEEDS = ("lookahead", "thread", "head_copy")
+
+
+def warm_train_rate(cfg, data, epochs=4, dataset="criteo", nfield=39,
+                    feed="lookahead"):
     """Host-clock rows/s of whole train epochs (run_epoch over the train
     split of {data}/{dataset}, TRAIN_BATCHES batches for the synthetic
     Criteo one: host batch assembly, copies, steps) on a fresh trainer of
-    `cfg`, the first epoch being the warm-up. Returns (warm rates, warm ms
+    `cfg`, the first epoch being the warm-up. The batches reach the card
+    through the iterator's lookahead (`feed` 'lookahead'), through it with
+    the prefetch thread on ('thread': ARMNET_PREFETCH_THREAD=1), or copied
+    at the head of each step ('head_copy'). Returns (warm rates, warm ms
     per step, the trainer)."""
     loaders = make_dataloaders(dataset, data, nfield, cfg.batch_size,
-                               seed=SEED)
+                               seed=SEED,
+                               device=None if feed == "head_copy" else "cuda")
     logger = get_logger(None, to_stdout=False, name="chip_smoke.train_rate")
     trainer = Trainer(cfg, *loaders, logger, seed=SEED)
     rows = len(loaders[0].ds)
+    train = HeadCopy(loaders[0]) if feed == "head_copy" else loaders[0]
     secs = []
-    for ep in range(epochs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_epoch(ep, trainer.state, loaders[0], logger,
-                  device=trainer.device, train_step=trainer.train_step,
-                  report_freq=10 ** 9)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
+    prev = os.environ.get("ARMNET_PREFETCH_THREAD")
+    os.environ["ARMNET_PREFETCH_THREAD"] = "1" if feed == "thread" else "0"
+    try:
+        for ep in range(epochs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_epoch(ep, trainer.state, train, logger,
+                      device=trainer.device, train_step=trainer.train_step,
+                      report_freq=10 ** 9)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    finally:
+        if prev is None:
+            del os.environ["ARMNET_PREFETCH_THREAD"]
+        else:
+            os.environ["ARMNET_PREFETCH_THREAD"] = prev
     remove_logger(logger)
     warm = secs[1:]
     return ([rows / t for t in warm],
@@ -2163,6 +2218,229 @@ def phase_entmax_alpha():
               f"learned-alpha entmax, {kind} alpha, card vs CPU: {errs}")
 
 
+DATA_ROWS = 100_000       # the data_path phase's Criteo-geometry file
+MALFORMED_ROWS = 2_000    # its first rows, with malformed lines among them
+
+
+def phase_data_path(tmp):
+    """The parse routes on a DATA_ROWS-row Criteo-geometry file: seconds of
+    the native parser's build, the native parser, the vectorized numpy
+    parse, a cache miss (the
+    native parse and the cache's publish) and a cache hit; equal arrays on
+    every route and over 4 byte-range shards, and `native` as the route.
+    Then its first MALFORMED_ROWS rows with malformed lines among them: the
+    native parser skips them as the line-by-line parser does."""
+    from armnet_tpu_torch.data import libsvm as dl
+    from armnet_tpu_torch.data import native
+
+    path = os.path.join(tmp, "data_path.libsvm")
+    with timed("write_libsvm"):
+        write_criteo_libsvm(path, DATA_ROWS, CRITEO_NFEAT, 39, SEED + 20)
+    secs = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    run("native_build", native.load)        # g++ at first use
+    want, route = run("native", lambda: dl.parse_routed(
+        path, 39, use_cache=False))
+    check(route == "native", f"the parse took the {route} route")
+    check(want[0].shape == (DATA_ROWS, 39), f"parsed {want[0].shape}")
+    fast = run("numpy_fast", lambda: dl._parse_numpy_fast(path, 39))
+    miss = run("cache_miss", lambda: dl.parse_routed(path, 39))
+    hit = run("cache_hit", lambda: dl.parse_routed(path, 39))
+    shards = run("native_4_shards", lambda: [
+        dl._parse_native(path, 39, dl.shard_byte_range(path, i, 4))
+        for i in range(4)])
+    check((miss[1], hit[1]) == ("native", "cache"),
+          f"cache routes {miss[1]}, {hit[1]}")
+    joined = tuple(np.concatenate([p[k] for p in shards]) for k in range(3))
+    for name, got in (("numpy_fast", fast), ("cache_miss", miss[0]),
+                      ("cache_hit", hit[0]), ("native_4_shards", joined)):
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"{name} arrays differ from the native parse")
+
+    bad = os.path.join(tmp, "malformed.libsvm")
+    with open(path) as f:
+        lines = [next(f) for _ in range(MALFORMED_ROWS)]
+    broken = ["1 3:0.5\n", "0 x:1 " + lines[0].split(" ", 1)[1],
+              "1 " + " ".join(["4:1"] * 40) + "\n"]
+    for i, line in enumerate(broken):
+        lines.insert(500 * (i + 1), line)
+    with open(bad, "w") as f:
+        f.writelines(lines)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        nat, route = dl.parse_routed(bad, 39, use_cache=False)
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            robust = run("numpy_robust_malformed",
+                         lambda: dl._parse_numpy_robust(bad, 39))
+    check(route == "native" and nat[0].shape == (MALFORMED_ROWS, 39),
+          f"malformed file: {route}, {nat[0].shape}")
+    check(all(np.array_equal(g, w) for g, w in zip(nat, robust)),
+          "native and line-by-line parses of the malformed file differ")
+    check(all(np.array_equal(g, w[:MALFORMED_ROWS])
+              for g, w in zip(nat, want)), "malformed file: rows differ")
+    skips = [str(w.message) for w in caught if "malformed" in str(w.message)]
+    check(len(skips) == 2 and all(f"skipped {len(broken)} malformed" in m
+                                  for m in skips), f"warnings {skips}")
+    check(printed.getvalue().count("incorrect data format") == len(broken),
+          "the line-by-line parse printed another count")
+    size = os.path.getsize(path)
+    log("data_path", rows=DATA_ROWS, nfield=39, mbytes=size / 1e6,
+        seconds=secs, native_mb_per_s=size / 1e6 / secs["native"],
+        cache_hit_speedup=secs["native"] / secs["cache_hit"],
+        malformed_skipped=len(broken), library=os.path.relpath(
+            native.library_path(), REPO), cache_dir=dl.cache_dir())
+
+
+def phase_feeds(data):
+    """Warm train rows/s of cr_armnet1h (ensemble off, auto) on the
+    synthetic Criteo split, each batch fed through the iterator's
+    lookahead, through it with the prefetch thread, and copied at the head
+    of its step (the loop before the lookahead), in the order A B C C B A
+    in this call;
+    and the lookahead trainer's train-step profile (host share)."""
+    cfg = criteo_config(False)
+    rates = {feed: [] for feed in FEEDS}
+    for feed in FEEDS + FEEDS[::-1]:
+        r, _, trainer = warm_train_rate(cfg, data, feed=feed)
+        rates[feed] += r
+        del trainer
+        torch.cuda.empty_cache()
+    med = {feed: float(np.median(r)) for feed, r in rates.items()}
+    log("feeds", width="cr_armnet1h", warm_rows_per_s=rates,
+        median_rows_per_s=med,
+        lookahead_over_head_copy=med["lookahead"] / med["head_copy"],
+        thread_over_lookahead=med["thread"] / med["lookahead"])
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_steps(first):
+    """A one-process NCCL group in this process: cr_armnet1h's table cut
+    by shard_tables on a model axis of 1 (each exchange's collectives run
+    over the one rank), one train step a exchange through
+    make_train_step(mesh) against the replicated step on the same batch
+    and weights: loss within 1e-6 relative, K7 once a step (into the
+    shard's R = nfeat / 1 rows). Returns the launches."""
+    import torch.distributed as dist
+
+    from armnet_tpu_torch.parallel.mesh import make_mesh
+    from armnet_tpu_torch.parallel.sharding import shard_tables
+    from armnet_tpu_torch.train.step import (create_train_state,
+                                             init_meters, make_train_step)
+
+    cfg = criteo_config(False)
+    batch = {k: v.to("cuda") for k, v in first.items()}
+    base = create_model(cfg, seed=SEED, device="cuda").state_dict()
+
+    def step(mesh=None, exchange=None):
+        model = create_model(cfg, seed=SEED, device="cuda")
+        model.load_state_dict(base)
+        if mesh is not None:
+            names = shard_tables(model, mesh, cfg.nfeat, exchange, 2.0)
+            check(names == ["embedding.weight"], f"sharded {names}")
+        zero_counts()
+        m = make_train_step(mesh=mesh)(create_train_state(model, cfg.lr),
+                                       init_meters("cuda"), batch)
+        torch.cuda.synchronize()
+        return float(m["loss_last"]), read_counts()
+
+    ref, _ = step()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    totals = dict.fromkeys(read_counts(), 0)
+    try:
+        mesh = make_mesh("data:1,model:1")
+        for exchange in ("psum", "a2a"):
+            loss, counts = step(mesh, exchange)
+            check(counts == {**dict.fromkeys(counts, 0), "entmax_fwd": 1,
+                             "entmax_bwd": 1, "table_grad": 1},
+                  f"{exchange} sharded step launched {counts}")
+            check(abs(loss - ref) <= 1e-6 * abs(ref),
+                  f"{exchange} sharded step loss {loss} against {ref}")
+            log("sharded_step", exchange=exchange, mesh=mesh.shape,
+                loss=loss, replicated_loss=ref, launches=counts)
+            for k in totals:
+                totals[k] += counts[k]
+    finally:
+        dist.destroy_process_group()
+    return totals
+
+
+def phase_distributed(tmp, data, first):
+    """torchrun (one process, NCCL) of the training CLI at cr_armnet1h
+    width, --mesh data:1,model:1 --shard_embedding, 2 epochs on the
+    synthetic Criteo split, against cli.main of the same flags and seed in
+    this process: the per-step losses as logged, the last checkpoint's
+    parameters within 1e-6 and predict's logits of the valid file's first
+    batch within 1e-5; then sharded_steps."""
+    flags = criteo_flags(False) + [
+        "--dataset", "criteo", "--data_dir", data, "--epoch", "2",
+        "--patience", "5", "--report_freq", "1", "--seed", str(SEED),
+        "--log_dir", os.path.join(tmp, "log"), "--ckpt_dir",
+        os.path.join(tmp, "ckpt"), "--device", "cuda"]
+    with timed("distributed.single"):
+        _, counts, single_s = run_cli(flags + ["--exp_name", "dist_single"])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "armnet_tpu_torch.train", *flags,
+           "--exp_name", "dist_torchrun", "--mesh", "data:1,model:1",
+           "--shard_embedding"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    with timed("distributed.torchrun"):
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=600)
+    torchrun_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"torchrun exited {proc.returncode}:\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    logs = {exp: os.path.join(tmp, "log", f"{exp}_{SEED}", "stdout.log")
+            for exp in ("dist_single", "dist_torchrun")}
+    losses = {exp: train_losses(path)[0] for exp, path in logs.items()}
+    check(losses["dist_single"] == losses["dist_torchrun"]
+          and len(sum(losses["dist_single"], [])) == 2 * TRAIN_BATCHES,
+          f"per-step losses differ: {losses}")
+    with open(logs["dist_torchrun"]) as f:
+        text = f.read()
+    check("mesh {'data': 1, 'model': 1}" in text and "read by" in text,
+          "the torchrun log lacks its mesh or parse line")
+    ckpts = {exp: os.path.join(tmp, "ckpt", f"{exp}_{SEED}")
+             for exp in logs}
+    states = {exp: load_checkpoint(c, "last")[0] for exp, c in ckpts.items()}
+    param_gap = max(float((states["dist_single"][k]
+                           - states["dist_torchrun"][k]).abs().max())
+                    for k in states["dist_single"])
+    check(param_gap <= 1e-6, f"last checkpoints differ by {param_gap}")
+    cfg = criteo_config(False)
+    valid = os.path.join(data, "criteo", "valid.libsvm")
+    logits = {exp: first_batch_logits(c, cfg, valid, "cuda")
+              for exp, c in ckpts.items()}
+    logit_gap = float((logits["dist_single"]
+                       - logits["dist_torchrun"]).abs().max())
+    check(logit_gap <= 1e-5, f"predict logits differ by {logit_gap}")
+    with timed("distributed.sharded_steps"):
+        sharded = sharded_steps(first)
+    log("distributed", command=" ".join(cmd[1:8]) + " ...", steps=2 *
+        TRAIN_BATCHES, losses_equal=True, param_max_abs_gap=param_gap,
+        logit_max_abs_gap=logit_gap, single_cli_seconds=single_s,
+        torchrun_seconds=torchrun_s, single_launches=counts,
+        sharded_step_launches=sharded)
+    for k in counts:
+        counts[k] += sharded[k]
+    return counts, sharded
+
+
 def main():
     smi = phase_device()
     # full-f32 GEMMs on both sides of every comparison
@@ -2182,6 +2460,10 @@ def main():
     with timed("kernel_multihead"):
         mh = phase_kernel_multihead()
     with tempfile.TemporaryDirectory() as tmp:
+        # the row cache of every phase's parses lives and dies with tmp
+        os.environ["ARMNET_CACHE_DIR"] = os.path.join(tmp, "row_cache")
+        with timed("data_path"):
+            phase_data_path(tmp)
         with timed("serve"):
             inp, serve = phase_serve_criteo(tmp)
         with timed("serve_fused"):
@@ -2195,6 +2477,11 @@ def main():
         data, first = criteo_split(tmp)
         with timed("train"):
             runs = [phase_train(tmp, data, first)]
+        with timed("feeds"):
+            phase_feeds(data)
+        with timed("distributed"):
+            dist_counts, sharded = phase_distributed(tmp, data, first)
+            runs.append(dist_counts)
         with timed("train_armnet"):
             runs.append(phase_train_armnet(tmp, data, first))
         with timed("frappe_train"):
@@ -2281,6 +2568,7 @@ def main():
          "plain_ms": crit["plain_ms"], "bound_ms": crit["bound_ms"],
          "bound_by": crit["bound_by"], "library_ms": crit["library_ms"],
          "table_grad_ms_with_sort": crit["whole_ms"],
+         "sharded_step_launches": sharded["table_grad"],
          "host_incl_ms": crit["whole_host_incl_ms"],
          "library_host_incl_ms": crit["library_host_incl_ms"],
          "table_grad_sort_ms": crit["sort_ms"],

@@ -786,3 +786,108 @@ def test_bf16_train_step_on_the_card(cuda, model, kernels):
         res[device.type] = (loss.item(), logits.dtype)
     assert res["cuda"][1] == res["cpu"][1]
     assert abs(res["cuda"][0] - res["cpu"][0]) <= 2e-2 * abs(res["cpu"][0])
+
+
+def _libsvm_rows(path, n, nfield, nfeat, seed):
+    rng = np.random.RandomState(seed)
+    with open(path, "w") as f:
+        for _ in range(n):
+            ids = rng.randint(0, nfeat, nfield)
+            f.write(f"{int(ids[0] % 3 == 0)} " + " ".join(
+                f"{i}:{rng.uniform(0.1, 1.0):.4f}" for i in ids) + "\n")
+    return path
+
+
+@pytest.mark.parametrize("thread", ["0", "1"])
+def test_lookahead_iterator_on_the_card_yields_the_cpu_batches(
+        cuda, tmp_path, monkeypatch, thread):
+    """The lookahead (pinned memory, a copy stream, the consumer waiting
+    on the copy's event), with and without the prefetch thread, hands
+    over on the card the batches the CPU iterator yields, across epochs,
+    the padded last batch and an early break included."""
+    from armnet_tpu_torch.data.libsvm import BatchIterator, LibsvmDataset
+
+    monkeypatch.setenv("ARMNET_PREFETCH_THREAD", thread)
+    monkeypatch.setenv("ARMNET_CACHE_DIR", str(tmp_path / "cache"))
+    ds = LibsvmDataset(_libsvm_rows(str(tmp_path / "t.libsvm"), 1000, 39,
+                                    2000, 0), 39)
+    cpu = BatchIterator(ds, 96, True, seed=3)
+    dev = BatchIterator(ds, 96, True, seed=3, device=cuda)
+    for _ in range(2):
+        for bc, bd in zip(cpu, dev):
+            for k in bc:
+                assert bd[k].device.type == "cuda"
+                # work on the consumer's stream right after the hand-over
+                torch.testing.assert_close((bd[k] * 1).cpu(), bc[k],
+                                           rtol=0, atol=0)
+    for i, _ in enumerate(dev):
+        if i == 2:
+            break
+    assert dev._inflight == []
+    if thread == "1":
+        assert not dev.thread.is_alive()
+
+
+def test_one_process_nccl_group_runs_the_multi_process_trainer(cuda,
+                                                               tmp_path):
+    """A one-process NCCL group: the mesh, the data group's all-reduces in
+    the step, the sharded checkpoint path and both sharded lookups (model
+    axis 1: the exchanges' collectives run over the one rank) with the
+    table gradient through K7 on the card, against the replicated
+    lookup."""
+    import logging
+
+    import torch.distributed as dist
+
+    from armnet_tpu_torch.data.libsvm import make_dataloaders
+    from armnet_tpu_torch.ops.embedding import embedding_bag
+    from armnet_tpu_torch.parallel.embedding_parallel import (
+        sharded_embedding_bag, sharded_embedding_bag_a2a)
+    from armnet_tpu_torch.parallel.mesh import make_mesh
+    from armnet_tpu_torch.train.checkpoint import load_checkpoint
+    from armnet_tpu_torch.train.loop import Trainer
+    from armnet_tpu_torch.utils.config import ExperimentConfig
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh("data:1,model:1")
+        assert mesh.distributed
+        rng = np.random.RandomState(0)
+        table = torch.randn(500, 10, device=cuda)
+        ids = torch.from_numpy(rng.randint(0, 500, (64, 39))).to(cuda)
+        values = torch.rand(64, 39, device=cuda)
+        w = torch.randn(64, 39, 10, device=cuda)
+        t0 = table.clone().requires_grad_()
+        (embedding_bag(t0, ids, values) * w).sum().backward()
+        for fn in (sharded_embedding_bag, sharded_embedding_bag_a2a):
+            t = table.clone().requires_grad_()
+            before = scatter_cuda.LAUNCHES
+            out = fn(t, ids, values, mesh)
+            (out * w).sum().backward()
+            assert scatter_cuda.LAUNCHES == before + 1
+            torch.testing.assert_close(out, embedding_bag(table, ids,
+                                                          values))
+            torch.testing.assert_close(t.grad, t0.grad, rtol=0, atol=1e-5)
+
+        data = tmp_path / "d" / "tiny"
+        data.mkdir(parents=True)
+        for name, n in (("train", 300), ("valid", 100), ("test", 100)):
+            _libsvm_rows(str(data / f"{name}.libsvm"), n, 5, 600, n)
+        cfg = ExperimentConfig(model="armnet_1h", nfeat=600, nfield=5,
+                               nemb=4, h=8, mlp_nhid=16, batch_size=64,
+                               mesh="data:1,model:1", shard_embedding=True,
+                               device="cuda")
+        loaders = make_dataloaders("tiny", str(tmp_path / "d"), 5, 64,
+                                   device=cuda)
+        logger = logging.getLogger("test_torch_cuda.nccl")
+        trainer = Trainer(cfg, *loaders, logger, seed=1,
+                          ckpt_dir=str(tmp_path / "ckpt"), mesh=mesh)
+        before = scatter_cuda.LAUNCHES
+        best, _ = trainer.fit(epochs=1)
+        assert scatter_cuda.LAUNCHES - before == 5       # one a train step
+        assert 0.0 <= best <= 1.0
+        state, _ = load_checkpoint(str(tmp_path / "ckpt"), "last")
+        assert tuple(state["embedding.weight"].shape) == (600, 4)
+    finally:
+        dist.destroy_process_group()

@@ -511,7 +511,8 @@ def test_cli_trains_on_the_cpu_and_predict_scores_it(tmp_path, capsys):
 
 def test_cli_raises_on_what_is_not_ported(tmp_path):
     """An *.arff folder now trains (the UCI multi-class path, 3 classes:
-    a 3-way head over its 2 fields); --mesh and a missing CUDA still
+    a 3-way head over its 2 fields); --mesh trains (a mesh of one process
+    here), a mesh of more processes than the run has and a missing CUDA
     raise."""
     data = tmp_path / "data"
     write_split(str(data / "tiny"), seed=5)
@@ -532,7 +533,10 @@ def test_cli_raises_on_what_is_not_ported(tmp_path):
     assert [r[0] for r in res] == [2025] and 0.0 <= res[0][1] <= 1.0
     meta = load_checkpoint(str(tmp_path / "ckpt" / "test_2025"))[1]
     assert (meta["config"]["noutput"], meta["config"]["nfield"]) == (3, 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    res = cli.main(base + ["--dataset", "tiny", "--mesh", "data:1,model:1",
+                           "--shard_embedding"])
+    assert 0.0 <= res[0][1] <= 1.0
+    with pytest.raises(ValueError, match="needs 2 processes, have 1"):
         cli.main(base + ["--dataset", "tiny", "--mesh", "data:2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
