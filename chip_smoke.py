@@ -106,6 +106,12 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               1.7) on data/uci_diabetes/ under --kernels auto and
               pallas-fused: launches per step, falling finite losses, one
               step on the card against the CPU, valid and test AUC
+     diabetes_parity  15 epochs of the db_armnet1h recipe in process from
+              the JAX package's seed-2025 init (data/parity/), under
+              --kernels auto and pallas-fused: the best valid AUC within
+              0.003 of the JAX package's from that init on the CPU; the
+              per-epoch valid AUC beside the JAX and port CPU curves, the
+              first epoch past 0.9, train losses, launches and seconds
      diabetes_armnet  3 epochs of the db_armnet recipe (K2/K4 at C = 32,
               alpha 1.7) on data/uci_diabetes/: the same checks
      frappe_zoo  afn, sa_glu and the other 16 zoo models (lr, fm, hofm,
@@ -167,6 +173,7 @@ import numpy as np
 import torch
 
 from armnet_tpu_torch import predict
+from armnet_tpu_torch.bridge import from_jax_arrays
 from armnet_tpu_torch.data.libsvm import (BatchIterator, LibsvmDataset,
                                           make_dataloaders)
 from armnet_tpu_torch.data.uci import uci_loader
@@ -207,11 +214,24 @@ SEED = 2025
 TRAIN_BATCHES, EVAL_ROWS = 10, 6000      # synthetic Criteo train split
 CPU_ROWS = 1024     # rows of a scoring batch that the CPU scores to compare
 PLAIN_REPS = 5      # timings of a plain version (10-40 ms a call on the card)
-# the JAX package's 3-epoch Frappe curve of this recipe (valid AUC)
-FRAPPE_JAX_VALID = (0.8211, 0.8841, 0.9041)
+# the JAX package's valid AUC after each epoch of phase_frappe_train's run,
+# on the CPU: `JAX_PLATFORMS=cpu python train.py --model armnet_1h --alpha
+# 2.0 --h 128 --lr 0.001 --batch_size 4096 --epoch 3 --patience 3 --seed
+# 2025 --dataset frappe --data_dir data/` (jax 0.9.0; a rerun reads the
+# same digits)
+FRAPPE_JAX_VALID = (0.82166, 0.847645, 0.895021)
 # the db_armnet1h preset, run on the bundled data/uci_diabetes/ split (43
 # fields a row)
 DIABETES_FLAGS = PRESETS["db_armnet1h"]
+# the JAX package's seed-2025 init of the db_armnet1h model (.npz, leaf
+# names of bridge.flatten_flax) and the valid AUC curves trained from it on
+# the CPU (.json: the JAX package, the port from that init and from its
+# own), written by `JAX_PLATFORMS=cpu python tests/preset_curves.py
+# --preset db_armnet1h --epochs 15 --seeds 2025 --export-init data/parity`
+PARITY = os.path.join(REPO, "data", "parity", f"db_armnet1h_{SEED}")
+# the card's best valid AUC from that init against the JAX package's: the
+# Frappe anchor's limit (PERF.md §2)
+PARITY_BEST_ATOL = 0.003
 
 
 # wall seconds by phase and by part of a phase, added up over the run
@@ -1563,6 +1583,93 @@ def phase_diabetes_train(tmp):
     return totals
 
 
+def first_epoch_past(curve, level=0.9):
+    """The 1-based epoch at which a valid AUC curve first passes `level`,
+    or None."""
+    return next((i + 1 for i, v in enumerate(curve) if v > level), None)
+
+
+def phase_diabetes_parity(tmp):
+    """15 epochs of the db_armnet1h recipe on data/uci_diabetes/ from the
+    JAX package's seed-2025 init (PARITY, carried in by bridge), under
+    --kernels auto (K2, K4, K7) and pallas-fused (K5 and K6 on their
+    past-40-field builds, K7), in process. The trainer and its loaders are
+    built at seed 2025 before the init is loaded, so the rows come in the
+    order of the CPU runs in PARITY's JSON. Fails unless the best valid
+    AUC is within PARITY_BEST_ATOL of the JAX package's from the same init,
+    every kernel of the choice launched once per step (and per eval batch
+    for the forward), and every step loss is finite. Logs the per-epoch
+    valid AUC beside the JAX and port CPU curves and their gaps (not
+    gated: before take-off the AUC sits at 0.55-0.75, where rounding moves
+    it by a few thousandths), the first epoch past 0.9 on each, the mean
+    train loss per epoch and the seconds."""
+    with open(PARITY + ".json") as f:
+        ref = json.load(f)
+    with np.load(PARITY + ".npz") as z:
+        init = {k: z[k] for k in z.files}
+    epochs, curves = ref["epochs"], ref["valid_auc"]
+    jax_curve, cpu_curve = curves["jax"], curves["port_from_jax_init"]
+    data = os.path.join(REPO, "data")
+    totals = dict.fromkeys(read_counts(), 0)
+    for kernels in ("auto", "pallas-fused"):
+        cfg = flags_config(DIABETES_FLAGS + ["--kernels", kernels,
+                                             "--data_dir", data])
+        exp = os.path.join(tmp, "log", f"parity_{kernels}")
+        logger = get_logger(os.path.join(exp, "stdout.log"), to_stdout=False,
+                            name=f"chip_smoke.parity_{kernels}")
+        loaders = make_dataloaders(cfg.dataset, data, cfg.nfield,
+                                   cfg.batch_size, seed=SEED,
+                                   device=torch.device("cuda"))
+        trainer = Trainer(cfg, *loaders, logger, seed=SEED,
+                          metrics_path=os.path.join(exp, "metrics.jsonl"))
+        trainer.state.model.load_state_dict(from_jax_arrays(init, cfg))
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer.fit(epochs, patience=epochs, report_freq=1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        remove_logger(logger)
+        steps = epochs * len(loaders[0])
+        evals = epochs * (len(loaders[1]) + len(loaders[2]))
+        fused = kernels == "pallas-fused"
+        want = zoo_want(steps, evals, entmax=not fused, tables=1)
+        if fused:
+            want.update(arm1h_fwd=steps + evals, arm1h_bwd=steps)
+        check(counts == want, f"diabetes_parity launches {counts}, expected "
+                              f"{want} ({steps} steps, {evals} eval batches)")
+        losses, means = train_losses(os.path.join(exp, "stdout.log"))
+        flat = [x for ep in losses for x in ep]
+        check(len(flat) == steps and all(math.isfinite(x) for x in flat),
+              f"diabetes_parity train losses {losses}")
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            valid = [json.loads(line)["valid"] for line in f]
+        best_gap = max(valid) - max(jax_curve)
+        log("diabetes_parity", recipe="db_armnet1h", kernels=kernels,
+            init=os.path.relpath(PARITY, REPO) + ".npz", epochs=epochs,
+            valid_auc=valid, jax_cpu_valid_auc=jax_curve,
+            port_cpu_valid_auc=cpu_curve,
+            port_own_init_cpu_valid_auc=curves["port_own_init"],
+            gap_vs_jax=[round(v - j, 6) for v, j in zip(valid, jax_curve)],
+            gap_vs_port_cpu=[round(v - c, 6)
+                             for v, c in zip(valid, cpu_curve)],
+            best=max(valid), jax_best=max(jax_curve),
+            port_cpu_best=max(cpu_curve), best_gap_vs_jax=best_gap,
+            first_epoch_past_0_9={
+                "card": first_epoch_past(valid),
+                "jax_cpu": first_epoch_past(jax_curve),
+                "port_cpu": first_epoch_past(cpu_curve)},
+            epoch_mean_loss=means, steps=steps, eval_batches=evals,
+            launches=counts, seconds=seconds, jax=ref["versions"]["jax"])
+        check(len(valid) == epochs and abs(best_gap) <= PARITY_BEST_ATOL,
+              f"diabetes_parity ({kernels}): best valid AUC {max(valid)} "
+              f"against the JAX package's {max(jax_curve)} from the same "
+              f"init (limit {PARITY_BEST_ATOL})")
+        for k in totals:
+            totals[k] += counts[k]
+    return totals
+
+
 # the multi-head presets' channel counts C = nattn_head * h on the entmax
 # kernels' inner axis, and a ragged 6 (the backward's per-thread loads)
 MULTIHEAD_C = (6, 8, 16, 32, 256, 512)
@@ -2032,8 +2139,8 @@ def phase_uci_train(tmp):
 # train.py <preset's flags> [--kernels pallas-fused] --batch_size 4096
 # --dataset frappe --data_dir data/ --epoch 2 --patience 2 --seed 2025
 # --bf16` (the fused kernels in Pallas interpret mode there): {(preset,
-# kernels): AUC}. In float32 the same armnet_1h run reads 0.8841 after 2
-# epochs (FRAPPE_JAX_VALID).
+# kernels): AUC}. In float32 the same armnet_1h run reads 0.847645 after 2
+# epochs (FRAPPE_JAX_VALID, the second epoch of a run with --epoch 3).
 BF16_JAX = {("frappe_armnet1h", "auto"): 0.839723,
             ("frappe_armnet1h", "pallas-fused"): 0.905903,
             ("frappe_armnet", "auto"): 0.912682}
@@ -2488,6 +2595,8 @@ def main():
             runs.append(phase_frappe_train(tmp))
         with timed("diabetes_train"):
             runs.append(phase_diabetes_train(tmp))
+        with timed("diabetes_parity"):
+            runs.append(phase_diabetes_parity(tmp))
         with timed("diabetes_armnet"):
             runs.append(phase_diabetes_armnet(tmp))
         with timed("frappe_zoo"):
