@@ -82,6 +82,15 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               launches per train step and per eval batch, one step on the
               card against the same step on the CPU from the run's
               checkpoint, and warm train rows/s over whole epochs
+     bench    the measurement harness, each script in fresh processes:
+              python -m armnet_tpu_torch.bench under auto and
+              pallas-fused, the ensemble off and on (the headline, auto
+              without the ensemble, at its defaults: 5 x 100 warm steps;
+              the others at 3 x 50), the step breakdown of armnet_1h
+              (3 x 30) under both kernel choices, and the recipes'
+              --quick rows: every line parses, every time and rate finite
+              and > 0, the launches per step of each kernel (K7 none in
+              fwd and fwd_bwd_dense)
      feeds    warm train rows/s of cr_armnet1h with the batches fed
               through the lookahead, through it with the prefetch thread
               (ARMNET_PREFETCH_THREAD=1) and copied at the head of each
@@ -173,6 +182,8 @@ import numpy as np
 import torch
 
 from armnet_tpu_torch import predict
+from armnet_tpu_torch.benchmarks.timing import (
+    launch_counts as read_counts, zero_launch_counts as zero_counts)
 from armnet_tpu_torch.bridge import from_jax_arrays
 from armnet_tpu_torch.data.libsvm import (BatchIterator, LibsvmDataset,
                                           make_dataloaders)
@@ -914,19 +925,6 @@ def phase_profile(inp):
         device_busy_share=busy_ms / wall_ms if events else None,
         top=[[e.key[:80], e.count, e.self_device_time_total / 1e3]
              for e in top])
-
-
-def zero_counts():
-    entmax_cuda.LAUNCHES = entmax_cuda.BWD_LAUNCHES = scatter_cuda.LAUNCHES = 0
-    arm_cuda.LAUNCHES = arm_cuda.BWD_LAUNCHES = 0
-
-
-def read_counts():
-    return {"entmax_fwd": entmax_cuda.LAUNCHES,
-            "entmax_bwd": entmax_cuda.BWD_LAUNCHES,
-            "table_grad": scatter_cuda.LAUNCHES,
-            "arm1h_fwd": arm_cuda.LAUNCHES,
-            "arm1h_bwd": arm_cuda.BWD_LAUNCHES}
 
 
 def run_cli(argv):
@@ -2404,6 +2402,109 @@ def phase_data_path(tmp):
             native.library_path(), REPO), cache_dir=dl.cache_dir())
 
 
+# the bench's variants (kernels, ensemble): the headline at the bench's
+# defaults, the others at BENCH_SHORT; the breakdown's and the recipes'
+# flags
+BENCH_SHORT = ["--reps", "3", "--steps", "50"]
+BREAKDOWN_FLAGS = ["--model", "armnet_1h", "--reps", "3", "--steps", "30"]
+HARNESS_TIMEOUT = 600
+
+
+def harness_lines(module, argv):
+    """The JSON lines that `python -m module argv` prints on stdout (a fresh
+    process in the repo; its stderr passes through); raises where it exits
+    non-zero or a line does not parse."""
+    r = subprocess.run([sys.executable, "-m", module, *argv], cwd=REPO,
+                       stdout=subprocess.PIPE, text=True,
+                       timeout=HARNESS_TIMEOUT)
+    check(r.returncode == 0, f"{module} {argv} exited {r.returncode}")
+    return [json.loads(line) for line in r.stdout.splitlines()]
+
+
+def check_timed(name, rec, keys):
+    """Each of `keys` of rec and of its step_ms finite and > 0, the idle
+    share in [0, 1)."""
+    vals = {k: rec[k] for k in keys}
+    vals.update({f"step_ms.{k}": v for k, v in rec["step_ms"].items()})
+    bad = {k: v for k, v in vals.items()
+           if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0)}
+    check(not bad, f"{name}: not finite and > 0: {bad}")
+    check(0.0 <= rec["idle_share"] < 1.0,
+          f"{name}: idle share {rec['idle_share']}")
+
+
+def want_per_step(kernels, tables, backward=True):
+    """The port's launches per train step of armnet_1h under `kernels`:
+    K2 and K4 (auto) or K5 and K6 (pallas-fused), and K7 `tables` times;
+    forward kernels only without the backward."""
+    fused = kernels == "pallas-fused"
+    return {"entmax_fwd": 0 if fused else 1,
+            "entmax_bwd": 0 if fused or not backward else 1,
+            "table_grad": tables,
+            "arm1h_fwd": 1 if fused else 0,
+            "arm1h_bwd": 1 if fused and backward else 0}
+
+
+def phase_bench():
+    """The harness on the card, each script in fresh processes: the bench's
+    four variants (--all's, headline last, at the defaults, the others at
+    BENCH_SHORT), the step breakdown of armnet_1h under both kernel choices
+    and the recipes' --quick rows; every line parses, every time and rate
+    is finite and > 0, and the launches per step are the step's: one K2
+    and one K4 (auto) or one K5 and one K6 (pallas-fused), K7 once a table,
+    none in fwd and fwd_bwd_dense."""
+    from armnet_tpu_torch.bench import VARIANTS
+    from armnet_tpu_torch.benchmarks.step_breakdown import SUBSETS
+
+    rate_keys = ("value", "min", "max", "device_ms_per_step")
+    for kernels, ensemble in VARIANTS:
+        headline = (kernels, ensemble) == VARIANTS[-1]
+        argv = (["--kernels", kernels] + (["--ensemble"] if ensemble else [])
+                + ([] if headline else BENCH_SHORT))
+        with timed(f"bench.{kernels}{'+' if ensemble else ''}"):
+            lines = harness_lines("armnet_tpu_torch.bench", argv)
+        check(len(lines) == 1, f"bench {argv}: {len(lines)} lines")
+        rec = lines[0]
+        log("bench", **rec)
+        check_timed(f"bench {argv}", rec, rate_keys)
+        check(math.isfinite(rec["loss_last"]), f"bench loss {rec}")
+        check(not headline or (rec["reps"], rec["steps"]) == (5, 100),
+              f"headline at {rec['reps']} x {rec['steps']}")
+        want = want_per_step(kernels, 2 if ensemble else 1)
+        check(rec["launches"] == want,
+              f"bench {argv}: launches per step {rec['launches']}, "
+              f"expected {want}")
+    for kernels in ("auto", "pallas-fused"):
+        with timed(f"bench.breakdown.{kernels}"):
+            rows = harness_lines("armnet_tpu_torch.benchmarks.step_breakdown",
+                                 BREAKDOWN_FLAGS + ["--kernels", kernels])
+        check([r["subset"] for r in rows] == list(SUBSETS),
+              f"breakdown subsets {[r['subset'] for r in rows]}")
+        for r in rows:
+            log("bench_breakdown", **r)
+            check_timed(f"breakdown {kernels} {r['subset']}", r,
+                        ("device_ms_per_step",))
+            dense = r["subset"] in ("fwd", "fwd_bwd_dense")
+            want = want_per_step(kernels, 0 if dense else 1,
+                                 backward=r["subset"] != "fwd")
+            check(r["launches"] == want,
+                  f"breakdown {kernels} {r['subset']}: launches per step "
+                  f"{r['launches']}, expected {want}")
+    with timed("bench.recipes"):
+        lines = harness_lines("armnet_tpu_torch.benchmarks.recipes",
+                              ["--quick"])
+    *rows, table = lines
+    check(len(rows) == 2 and table["rows"] == rows,
+          f"recipes --quick: {len(rows)} rows and {table.get('metric')}")
+    for r in rows:
+        log("bench_recipes", **r)
+        check_timed(f"recipe {r['recipe']}", r,
+                    ("ms_per_step", "examples_per_sec", "min", "max",
+                     "device_ms_per_step"))
+        check(r["launches"] == want_per_step("auto", 1),
+              f"recipe {r['recipe']}: launches per step {r['launches']}")
+
+
 def phase_feeds(data):
     """Warm train rows/s of cr_armnet1h (ensemble off, auto) on the
     synthetic Criteo split, each batch fed through the iterator's
@@ -2584,6 +2685,8 @@ def main():
         data, first = criteo_split(tmp)
         with timed("train"):
             runs = [phase_train(tmp, data, first)]
+        with timed("bench"):
+            phase_bench()
         with timed("feeds"):
             phase_feeds(data)
         with timed("distributed"):
