@@ -17,8 +17,10 @@ device event): the device ms per step, and the launches per step of each
 of the port's kernels, from the counts their wrappers keep.
 """
 
+import json
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -29,7 +31,7 @@ from armnet_tpu_torch.kernels.bench import device_events
 
 __all__ = ["KERNEL_CHOICES", "add_timing_args", "bench_batch", "shift_ids",
            "time_steps", "summary", "zero_launch_counts", "launch_counts",
-           "profile_steps", "card", "measure"]
+           "profile_steps", "card", "measure", "parse_only", "run_stages"]
 
 # the kernel choices the harness times: the per-op kernels and the fused
 # ARM-1h pair (kernels/config.py)
@@ -39,12 +41,14 @@ PROFILE_STEPS = 20
 CARD_QUERY = "name,power.limit,clocks.sm,clocks.max.sm,clocks.mem"
 
 
-def add_timing_args(parser, warm=20, steps=100, reps=5):
-    """--device, --kernels, --warm, --steps and --reps of every script of
-    the harness."""
+def add_timing_args(parser, warm=20, steps=100, reps=5, kernels=True):
+    """--device, --kernels (where the script builds a model), --warm,
+    --steps and --reps of every script of the harness."""
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without CUDA) or cpu")
-    parser.add_argument("--kernels", default="auto", choices=KERNEL_CHOICES)
+    if kernels:
+        parser.add_argument("--kernels", default="auto",
+                            choices=KERNEL_CHOICES)
     parser.add_argument("--warm", type=int, default=warm,
                         help="warm-up steps before the timed repetitions")
     parser.add_argument("--steps", type=int, default=steps,
@@ -149,10 +153,10 @@ def card():
     return dict(zip(CARD_QUERY.split(","), values))
 
 
-def measure(step_fn, device, warm, steps, reps):
+def measure(step_fn, device, warm, steps, reps, profiled=PROFILE_STEPS):
     """The harness's measurement of step_fn(): `warm` calls, the card read,
     `reps` timed repetitions of `steps` calls, the card read again, then
-    the profiled repetition of PROFILE_STEPS calls. idle_share is 1 less
+    the profiled repetition of `profiled` calls. idle_share is 1 less
     the profiled device ms per step over the timed median wall ms per
     step: the share of the wall in which the device has no work. `seconds`
     is the wall of each part."""
@@ -168,7 +172,7 @@ def measure(step_fn, device, warm, steps, reps):
     t3 = time.perf_counter()
     after = card() if cuda else None
     t4 = time.perf_counter()
-    device_ms, launches = profile_steps(step_fn, PROFILE_STEPS, device)
+    device_ms, launches = profile_steps(step_fn, profiled, device)
     step_ms = summary(times)
     return {"times_ms": times, "step_ms": step_ms,
             "device_ms_per_step": device_ms,
@@ -178,3 +182,41 @@ def measure(step_fn, device, warm, steps, reps):
             "seconds": {"warm": t1 - t0, "card": t2 - t1 + t4 - t3,
                         "timed": t3 - t2,
                         "profiled": time.perf_counter() - t4}}
+
+
+def parse_only(argv):
+    """The set of names in the JAX scripts' first positional argument
+    (comma-separated), None where it is absent."""
+    return set(argv.split(",")) if argv else None
+
+
+def run_stages(stages, device, warm, steps, reps, only=None, beside=None,
+               **fields):
+    """measure() of each (name, fn) of `stages` that `only` names (all where
+    only is None), in order, the profiled repetition `steps` calls long:
+    one JSON line per stage on stdout as it is taken ({stage, **fields,
+    warm, steps, reps and measure()'s record}, and under "beside" the
+    measure() of `beside[name] = (what, fn)`, a call timed beside the
+    stage) and the JAX scripts' table line on stderr (ms per call, the
+    device ms beside it). Returns the records."""
+    beside = beside or {}
+    rows = []
+    for name, fn in stages:
+        if only is not None and name not in only:
+            continue
+        rec = {"stage": name, **fields, "warm": warm, "steps": steps,
+               "reps": reps,
+               **measure(fn, device, warm, steps, reps, profiled=steps)}
+        if name in beside:
+            what, other = beside[name]
+            rec["beside"] = {"what": what, **measure(
+                other, device, warm, steps, reps, profiled=steps)}
+        dev = rec["device_ms_per_step"]
+        print(f"{name:16s} {rec['step_ms']['median']:8.2f} ms  device "
+              f"{'n/a' if dev is None else format(dev, '8.3f')} ms",
+              file=sys.stderr, flush=True)
+        print(json.dumps(rec), flush=True)
+        rows.append(rec)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return rows

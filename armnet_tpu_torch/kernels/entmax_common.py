@@ -4,14 +4,18 @@ entmax kernel (port of armnet_tpu/kernels/entmax_common.py).
 The solve: find tau with  f(tau) = sum_i max(x_i - tau, 0)^(1/(alpha-1)) = 1
 (x pre-scaled by alpha-1), then p = max(x - tau, 0)^(1/(alpha-1)),
 renormalized. Three solver branches, at the JAX package's production
-budgets (its environment-variable knobs are not carried over):
+budgets by default (its environment-variable knobs, read at import, are
+keyword arguments of `solve_entmax_axis0` here: `solver`, `n_fast`,
+`n_polish`, `n_bisect`, `n_newton`):
 
   * alpha in {1.5, 2} (1/(alpha-1) in {1, 2, 3}: pow is 0-2 multiplies):
     plain bisection, capped at 30 iterations (an f32 bracket is exhausted
     after ~27 halvings);
   * other alpha <= 2: N_FAST bisections on a bit-trick pow, then N_POLISH
     safeguarded Newton steps on the exact pow;
-  * alpha > 2: N_BISECT exact bisections, then N_NEWTON Newton steps.
+  * alpha > 2: N_BISECT exact bisections, then N_NEWTON Newton steps
+    (solver="newton" takes this branch at alpha <= 2 too, as the JAX
+    package's ARMNET_ENTMAX_SOLVER=newton does).
 
 The CUDA kernels (the column solve of csrc/entmax_solver.cuh) repeat this
 arithmetic operation for operation, and the sums over the normalized axis
@@ -31,13 +35,17 @@ dx = dy*g - (sum(dy*g) / sum(g)) * g.
 import torch
 
 __all__ = ["pow_inv", "pow_static", "solve_entmax_axis0", "entmax_bwd_axis0",
-           "solver_mode", "bisect_steps", "N_BISECT", "N_NEWTON", "N_FAST",
-           "N_POLISH"]
+           "solver_mode", "bisect_steps", "SOLVERS", "N_BISECT", "N_NEWTON",
+           "N_FAST", "N_POLISH"]
 
 N_BISECT = 8
 N_NEWTON = 6
 N_FAST = 12
 N_POLISH = 4
+# the solvers of a generic alpha <= 2 (the JAX package's
+# ARMNET_ENTMAX_SOLVER): the fast-pow seed (the default), or bisection
+# and Newton as at alpha > 2
+SOLVERS = ("fastpow", "newton")
 BISECT_CONVERGED = 30    # f32 bracket is mantissa-exhausted after ~27 halvings
 _TINY = 1e-30
 # Blinn fast-pow: z^c ~= bitcast(c * (bits(z) - K) + K)
@@ -45,12 +53,16 @@ _FAST_K = int((127 - 0.0450466) * (1 << 23))
 _FAST_K_F32 = float(torch.tensor(_FAST_K, dtype=torch.float32))
 
 
-def solver_mode(alpha):
-    """'bisect' | 'fastpow' | 'newton': the solver branch for a static alpha."""
+def solver_mode(alpha, solver="fastpow"):
+    """'bisect' | 'fastpow' | 'newton': the solver branch for a static alpha
+    under `solver` (SOLVERS)."""
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown entmax solver {solver!r}; known: "
+                         f"{SOLVERS}")
     inv_am1 = 1.0 / (alpha - 1.0)
     if inv_am1 in (1.0, 2.0, 3.0):
         return "bisect"
-    return "fastpow" if alpha <= 2.0 else "newton"
+    return "fastpow" if solver == "fastpow" and alpha <= 2.0 else "newton"
 
 
 def bisect_steps(n_iter):
@@ -101,13 +113,18 @@ def _sum0(x):
     return s
 
 
-def solve_entmax_axis0(x, alpha, n_iter=50):
-    """alpha-entmax over axis 0 of a float32 tensor of any rank."""
+def solve_entmax_axis0(x, alpha, n_iter=50, *, solver="fastpow",
+                       n_fast=N_FAST, n_polish=N_POLISH, n_bisect=N_BISECT,
+                       n_newton=N_NEWTON):
+    """alpha-entmax over axis 0 of a float32 tensor of any rank; `solver`
+    and the step budgets of the fastpow (n_fast, n_polish) and newton
+    (n_bisect, n_newton) branches default to the kernels' compiled
+    ones."""
     am1 = alpha - 1.0
     inv_am1 = 1.0 / am1
     x = x * am1
     d = x.shape[0]
-    mode = solver_mode(alpha)
+    mode = solver_mode(alpha, solver)
 
     def f_val(tau):
         return _sum0(pow_inv(x - tau, inv_am1)) - 1.0
@@ -131,21 +148,20 @@ def solve_entmax_axis0(x, alpha, n_iter=50):
         # the fast bracket only seeds tau; the polish below re-derives its
         # bracket from exact f signs (the root can sit slightly outside)
         t_lo, t_hi = tau_lo, tau_hi
-        for _ in range(N_FAST):
+        for _ in range(n_fast):
             t_m = 0.5 * (t_lo + t_hi)
             pos = _sum0(_fast_pow(x - t_m, inv_am1)) - 1.0 >= 0
             t_lo = torch.where(pos, t_m, t_lo)
             t_hi = torch.where(pos, t_hi, t_m)
         tau = 0.5 * (t_lo + t_hi)
-        n_polish = N_POLISH
     else:
-        for _ in range(N_BISECT):
+        for _ in range(n_bisect):
             tau_m = 0.5 * (tau_lo + tau_hi)
             pos = f_val(tau_m) >= 0
             tau_lo = torch.where(pos, tau_m, tau_lo)
             tau_hi = torch.where(pos, tau_hi, tau_m)
         tau = 0.5 * (tau_lo + tau_hi)
-        n_polish = N_NEWTON
+        n_polish = n_newton
 
     for _ in range(n_polish):
         z = torch.clamp_min(x - tau, 0.0)

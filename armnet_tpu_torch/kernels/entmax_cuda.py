@@ -73,10 +73,10 @@ def entmax_bwd_plain(y, dy, alpha, axis=-1):
                             alpha).movedim(0, axis)
 
 
-def mode_id(alpha):
+def mode_id(alpha, solver="fastpow"):
     """The solver branch of csrc/entmax_solver.cuh (Mode) for a static
-    alpha."""
-    mode = solver_mode(alpha)
+    alpha under `solver` (entmax_common.SOLVERS)."""
+    mode = solver_mode(alpha, solver)
     return _BISECT_MODE[1.0 / (alpha - 1.0)] if mode == "bisect" else \
         _MODE[mode]
 
@@ -103,7 +103,7 @@ def route_for(d):
     return "global", 128
 
 
-def fwd_function(alpha, route):
+def fwd_function(alpha, route, solver="fastpow"):
     """The forward's ctypes entry for a static alpha on a route (route_for),
     built at first use: a register bucket's entry of alpha's solver mode
     (FWD_ARGTYPES), or the column entry of every mode (COLUMN_ARGTYPES)."""
@@ -111,10 +111,12 @@ def fwd_function(alpha, route):
         return build.function("entmax_fwd_column", "armnet_entmax_fwd_column",
                               COLUMN_ARGTYPES)
     return build.function(*_FWD_ENTRY.get(
-        mode_id(alpha), ("entmax", "armnet_entmax_fwd")), FWD_ARGTYPES)
+        mode_id(alpha, solver), ("entmax", "armnet_entmax_fwd")),
+        FWD_ARGTYPES)
 
 
-def fwd_args(x, y, alpha, outer, d, inner, route, n_iter=50):
+def fwd_args(x, y, alpha, outer, d, inner, route, n_iter=50,
+             solver="fastpow"):
     """The forward entry's arguments for y = entmax of the (outer, d,
     inner) view of x on `route` (route_for; a register route's argument is
     its bucket, FWD_ARGTYPES; the others' their threads and where the
@@ -123,7 +125,7 @@ def fwd_args(x, y, alpha, outer, d, inner, route, n_iter=50):
     where, n = route
     place = (n,) if where == "register" else (n, int(where == "shared"))
     return (x.data_ptr(), y.data_ptr(), outer, d, inner, *place,
-            mode_id(alpha), bisect_steps(n_iter), am1, 1.0 / am1,
+            mode_id(alpha, solver), bisect_steps(n_iter), am1, 1.0 / am1,
             (1.0 / d) ** am1, build.raw_stream(x.device))
 
 
@@ -146,9 +148,11 @@ def _view(x, alpha, axis, who, *more):
             math.prod(x.shape[axis + 1:]))
 
 
-def entmax_kernel(x, alpha, axis=-1, n_iter=50):
+def entmax_kernel(x, alpha, axis=-1, n_iter=50, solver="fastpow"):
     """alpha-entmax along `axis` of a contiguous CUDA float32 tensor, on the
-    current stream. Raises on what the kernel does not take."""
+    current stream; solver="newton" launches the newton build at any
+    generic alpha (entmax_common.solver_mode). Raises on what the kernel
+    does not take."""
     global LAUNCHES
     alpha = float(alpha)
     outer, d, inner = _view(x, alpha, axis, "entmax_kernel")
@@ -156,9 +160,10 @@ def entmax_kernel(x, alpha, axis=-1, n_iter=50):
     if x.numel() == 0:
         return y
     route = route_for(d)
-    fn = fwd_function(alpha, route)
+    fn = fwd_function(alpha, route, solver)
     with torch.cuda.device(x.device):
-        err = fn(*fwd_args(x, y, alpha, outer, d, inner, route, n_iter))
+        err = fn(*fwd_args(x, y, alpha, outer, d, inner, route, n_iter,
+                           solver))
     if err != 0:
         raise RuntimeError(f"entmax kernel launch failed: cudaError {err}")
     LAUNCHES += 1

@@ -91,6 +91,17 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               --quick rows: every line parses, every time and rate finite
               and > 0, the launches per step of each kernel (K7 none in
               fwd and fwd_bwd_dense)
+     benchmarks  the rest of the harness: K1 and K3 on the last axis of
+              mh_breakdown's gates [4096, 4, 64, 39] (the (1048576, 39, 1)
+              view) through its entmax stages in this process, held to
+              their plain versions and timed beside them and the bound;
+              tablegrad_breakdown's table gradient against index_add_ on
+              the card; then in fresh processes mh_breakdown,
+              tablegrad_breakdown and tablegrad_prep_bench (every stage,
+              times finite and > 0, launches per call), fastpow_accuracy
+              (the kernel's worst error within 1.2x the newton build's at
+              each alpha), scaling --max_devices 1 (one row) and one A/A
+              pair of the bench through paired_ab
      feeds    warm train rows/s of cr_armnet1h with the batches fed
               through the lookahead, through it with the prefetch thread
               (ARMNET_PREFETCH_THREAD=1) and copied at the head of each
@@ -2505,6 +2516,171 @@ def phase_bench():
               f"recipe {r['recipe']}: launches per step {r['launches']}")
 
 
+# the benchmark modules' depth in the smoke: one warm call, two timed
+# repetitions of three calls (the profiled repetition: three calls)
+BENCHMARK_FLAGS = ["--warm", "1", "--steps", "3", "--reps", "2"]
+# mh_breakdown's stages that normalize with a kernel (alpha 2): the entmax
+# forward (K1 on the last axis, K2 on the fields-major gates) once a call,
+# the backward's VJP (K3, K4) once more in each *_bwd of them
+MH_ENTMAX_STAGES = ("entmax_fwd", "entmax_bwd", "interaction_fwd",
+                    "interaction_bwd", "interaction_fm_fwd",
+                    "interaction_fm_bwd")
+
+
+def check_stages(module, rows, names, launches):
+    """The lines of a stage breakdown: one per stage of `names` in order,
+    every time finite and > 0 (the device ms from the profiled repetition
+    too), the launches per call launches(stage)."""
+    check([r["stage"] for r in rows] == list(names),
+          f"{module}: stages {[r['stage'] for r in rows]}")
+    for r in rows:
+        times = {f"step_ms.{k}": v for k, v in r["step_ms"].items()}
+        times["device_ms_per_step"] = r["device_ms_per_step"]
+        bad = {k: v for k, v in times.items() if not (
+            isinstance(v, (int, float)) and math.isfinite(v) and v > 0)}
+        check(not bad, f"{module} {r['stage']}: not finite and > 0: {bad}")
+        want = {**dict.fromkeys(read_counts(), 0), **launches(r["stage"])}
+        check(r["launches"] == want, f"{module} {r['stage']}: launches per "
+                                     f"call {r['launches']}, expected {want}")
+
+
+def last_axis_kernels():
+    """K1 and K3 on the last axis of mh_breakdown's gates [4096, 4, 64, 39]
+    (the (outer, d, inner) = (1048576, 39, 1) view), in this process: its
+    entmax_fwd and entmax_bwd stages launched with the counts set to 0
+    just before and read just after, their outputs held to the plain
+    versions on the card at the kernel phases' tolerances (max abs 5e-6
+    forward and 2e-5 backward, and within KERNELS_VS_PLAIN_RTOL of their
+    norms), then timed beside the plain versions and the bounds. Returns
+    (launches, {"fwd"|"bwd": record})."""
+    from armnet_tpu_torch.benchmarks import mh_breakdown
+
+    inp = mh_breakdown.inputs(device="cuda")
+    stages = dict(mh_breakdown.stages(inp))
+    g0, alpha = inp["gates"], mh_breakdown.ALPHA
+    zero_counts()
+    (y,) = stages["entmax_fwd"]()
+    (dx,) = stages["entmax_bwd"]()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == {**dict.fromkeys(counts, 0), "entmax_fwd": 2,
+                     "entmax_bwd": 1},
+          f"entmax_fwd and entmax_bwd stages launched {counts}")
+    outer, d = math.prod(g0.shape[:-1]), g0.shape[-1]
+    view, numel = [outer, d, 1], g0.numel()
+    recs = {}
+    for kind, got, plain, kernel, tol, (bound_ms, by) in (
+            ("fwd", y, lambda: entmax_cuda.entmax_plain(g0, alpha, -1),
+             lambda: entmax_cuda.entmax_kernel(g0, alpha, -1), 5e-6,
+             entmax_bound_ms(view, alpha)),
+            ("bwd", dx, lambda: entmax_cuda.entmax_bwd_plain(y, g0, alpha,
+                                                              -1),
+             lambda: entmax_cuda.entmax_bwd_kernel(y, g0, alpha, -1), 2e-5,
+             bound(3 * 4 * numel,
+                   entmax_bwd_ops_per_element(alpha) * numel))):
+        want = plain()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= tol
+              and within(got - want, want, KERNELS_VS_PLAIN_RTOL, 0.0),
+              f"entmax_{kind} kernel vs plain on the last axis {view}: max "
+              f"abs err {err} (tol {tol})")
+        recs[kind] = {"shape": view, "alpha": alpha,
+                      "stages": "mh_breakdown entmax_fwd, entmax_bwd",
+                      "launches": counts[f"entmax_{kind}"],
+                      "max_abs_err": err, "tol": tol,
+                      "ms": time_ms(kernel),
+                      "plain_ms": time_ms(plain, PLAIN_REPS, 1),
+                      "bound_ms": bound_ms, "bound_by": by}
+    recs["fwd"]["route"] = entmax_cuda.route_for(d)
+    recs["bwd"]["blocks_per_sm"] = entmax_cuda.bwd_blocks_per_sm(d, alpha)
+    for kind in recs:
+        log("benchmarks", name=f"entmax_{kind}", last_axis=recs[kind])
+    return counts, recs
+
+
+def phase_benchmarks():
+    """The rest of the harness (armnet_tpu_torch/benchmarks/): K1 and K3 on
+    the last axis held and timed in this process (last_axis_kernels), the
+    table_grad stage of tablegrad_breakdown held to index_add_ on the card;
+    then each module in a fresh process at BENCHMARK_FLAGS' depth:
+    mh_breakdown (every stage, the launches of each), tablegrad_breakdown
+    and tablegrad_prep_bench (K7 once in each table-gradient stage, and the
+    split), fastpow_accuracy (the kernel at its compiled budget within
+    REL of the newton build's worst at each alpha, the plain solver's (12,
+    4) passing), scaling --max_devices 1 (one row) and paired_ab (one A/A
+    pair of the bench at BENCH_SHORT: the ratio). Returns (launches of the
+    in-process stages, the K1/K3 records)."""
+    from armnet_tpu_torch.benchmarks import mh_breakdown, tablegrad_prep_bench
+    from armnet_tpu_torch.benchmarks import tablegrad_breakdown as tb
+
+    with timed("benchmarks.last_axis"):
+        counts, last_axis = last_axis_kernels()
+    ids, g = tb.inputs(device="cuda")
+    zero_counts()
+    (got,) = dict(tb.stages(ids, g, tb.NROWS))["full"]()
+    torch.cuda.synchronize()
+    tg_counts = read_counts()
+    check(tg_counts["table_grad"] == 1, f"full launched {tg_counts}")
+    counts = {k: v + tg_counts[k] for k, v in counts.items()}
+    card = scatter_cuda.table_grad_plain(g, ids, tb.NROWS)
+    spread = scatter_cuda.table_grad_plain(g.abs(), ids, tb.NROWS)
+    err = float((got - card).abs().max())
+    check(bool(((got - card).abs() <= 1e-6 + 1e-5 * spread).all()),
+          f"tablegrad full vs index_add_ on the card: max abs err {err}")
+    log("benchmarks", name="tablegrad_full", max_abs_err_vs_index_add=err,
+        launches=tg_counts)
+    module = "armnet_tpu_torch.benchmarks."
+    with timed("benchmarks.mh_breakdown"):
+        rows = harness_lines(module + "mh_breakdown", BENCHMARK_FLAGS)
+    check_stages("mh_breakdown", rows, mh_breakdown.STAGES, lambda s: {
+        "entmax_fwd": int(s in MH_ENTMAX_STAGES),
+        "entmax_bwd": int(s in MH_ENTMAX_STAGES and s.endswith("_bwd"))})
+    for r in rows:
+        log("benchmarks_mh", **r)
+    with timed("benchmarks.tablegrad"):
+        rows = harness_lines(module + "tablegrad_breakdown", BENCHMARK_FLAGS)
+        *prep, split = harness_lines(module + "tablegrad_prep_bench",
+                                     BENCHMARK_FLAGS)
+    check_stages("tablegrad_breakdown", rows, tb.STAGES,
+                 lambda s: {"table_grad": int(s == "full")})
+    check_stages("tablegrad_prep_bench", prep, tablegrad_prep_bench.STAGES,
+                 lambda s: {"table_grad": int(s.startswith(("kernel_",
+                                                             "reshape")))})
+    check(split["stage"] == "k7_split" and all(
+        split[k] > 0 for k in ("whole_ms", "sort_ms", "kernel_ms",
+                               "library_ms")), f"k7_split: {split}")
+    for r in rows + prep + [split]:
+        log("benchmarks_tablegrad", **r)
+    with timed("benchmarks.fastpow_accuracy"):
+        *solvers, summary = harness_lines(module + "fastpow_accuracy", [])
+    for r in solvers:
+        log("benchmarks_fastpow", **r)
+    log("benchmarks_fastpow", **summary)
+    check(summary["kernel_ok"] and all(summary["kernel_ok_by_alpha"].values())
+          and [12, 4] in [r["budget"] for r in solvers
+                          if r["solver"] == "plain_fastpow" and r["ok"]],
+          f"fastpow_accuracy: the kernel or (12, 4) misses the newton bar: "
+          f"{summary}")
+    with timed("benchmarks.scaling"):
+        *rows, table = harness_lines(module + "scaling", [
+            "--max_devices", "1", "--warm", "5", "--steps", "20", "--reps",
+            "3"])
+    check(len(rows) == 1 and table["rows"] == rows
+          and rows[0]["devices"] == 1 and rows[0]["examples_per_sec"] > 0
+          and rows[0]["launches"] == want_per_step("auto", 1),
+          f"scaling --max_devices 1: {rows}")
+    log("benchmarks_scaling", **table)
+    with timed("benchmarks.paired_ab"):
+        (ab,) = harness_lines(module + "paired_ab", [
+            "--a", "", "--b", "", "--pairs", "1", "--cmd",
+            f"{sys.executable} -m armnet_tpu_torch.bench "
+            + " ".join(BENCH_SHORT)])
+    check(len(ab["ratios"]) == 1 and math.isfinite(ab["median_ratio"])
+          and ab["median_ratio"] > 0, f"paired_ab A/A: {ab}")
+    log("benchmarks_paired_ab", **ab)
+    return counts, last_axis
+
+
 def phase_feeds(data):
     """Warm train rows/s of cr_armnet1h (ensemble off, auto) on the
     synthetic Criteo split, each batch fed through the iterator's
@@ -2687,6 +2863,9 @@ def main():
             runs = [phase_train(tmp, data, first)]
         with timed("bench"):
             phase_bench()
+        with timed("benchmarks"):
+            bench_counts, last_axis = phase_benchmarks()
+            runs.append(bench_counts)
         with timed("feeds"):
             phase_feeds(data)
         with timed("distributed"):
@@ -2754,7 +2933,8 @@ def main():
          "frappe_bucket": entmax_cuda.route_for(FRAPPE_SHAPE[1])[1],
          "also_source": "armnet_tpu_torch/kernels/csrc/entmax_fwd_column.cu",
          "diabetes": {"alpha": 1.7, **fwd_all[1.7]["diabetes"]},
-         "d100": {"alpha": 2.0, **fwd["d100"]}, **mh["fwd"]},
+         "d100": {"alpha": 2.0, **fwd["d100"]}, **mh["fwd"],
+         "last_axis": last_axis["fwd"]},
         {"name": "entmax_bwd", "route": "cuda",
          "source": "armnet_tpu_torch/kernels/csrc/entmax_bwd.cu",
          "replaces": "armnet_tpu/kernels/entmax_pallas.py:159",
@@ -2769,7 +2949,8 @@ def main():
          "ms_by_alpha": {a: v["ms"] for a, v in bwd_all.items()},
          "frappe": {"alpha": 2.0, **bwd["frappe"]},
          "diabetes": {"alpha": 1.7, **bwd_all[1.7]["diabetes"]},
-         "d100": {"alpha": 2.0, **bwd["d100"]}, **mh["bwd"]},
+         "d100": {"alpha": 2.0, **bwd["d100"]}, **mh["bwd"],
+         "last_axis": last_axis["bwd"]},
         {"name": "table_grad", "route": "cuda",
          "source": "armnet_tpu_torch/kernels/csrc/table_grad.cu",
          "replaces": "armnet_tpu/kernels/scatter_pallas.py:122",
