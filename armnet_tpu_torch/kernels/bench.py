@@ -2,7 +2,10 @@
 shapes and every alpha, the entmax backward (K3/K4) at the serving shapes,
 the Diabetes130 step and columns past the forward's register buckets,
 every alpha, beside its bound, with its registers, spills and blocks per
-SM, the table gradient (K7) on a Criteo batch with
+SM; both at ENTMAX_STEPS (the last axis of mh_breakdown's gates and the
+multi-head presets' gates) beside the bound and the plain version, and
+there on every route their C entries take (`entmax_routes`); the table
+gradient (K7) on a Criteo batch with
 uniform and Zipf-skewed ids and all ids equal (and on the uniform batch at
 the zoo's widths E = 1 and 20), split into its sort and its
 fill and segmented sums beside the PyTorch route it replaced and
@@ -13,7 +16,8 @@ registers and spills that ptxas reports.
 
     python -m armnet_tpu_torch.kernels.bench [--out FILE] [SECTION ...]
 
-SECTION is entmax, entmax_bwd, table_grad or arm (all if none is named).
+SECTION is entmax, entmax_bwd, entmax_routes, table_grad or arm (all if
+none is named).
 
 `time_ms` is the device's time of one call: the median of 20 CUDA-event
 timings after 3 warm calls, with the device held busy while the host
@@ -34,14 +38,28 @@ import numpy as np
 import torch
 
 from armnet_tpu_torch.kernels import arm_cuda, build, entmax_cuda, scatter_cuda
-from armnet_tpu_torch.kernels.bounds import (bound,
+from armnet_tpu_torch.kernels.bounds import (bound, entmax_bound_ms,
                                              entmax_bwd_ops_per_element,
                                              fused_arm_bounds)
+from armnet_tpu_torch.kernels.entmax_common import solver_mode
 
 CRITEO_SHAPE = (4096, 39, 128)
 FRAPPE_SHAPE = (4096, 10, 128)
 # the db_armnet1h step (armnet_tpu/utils/presets.py: batch 1024, 43 fields)
 DIABETES_SHAPE = (1024, 43, 128)
+# (name, the (outer, d, inner) view, alpha) of the entmax kernels' steps
+# where inner is small or wide: the last axis of mh_breakdown's gates [4096,
+# 4, 64, 39] (K1/K3), the gates [B, F, nattn_head x h] of the multi-head
+# presets (utils/presets.py, batch 4096 but db_armnet's 1024) and the
+# armnet_1h gates [4096, 39, 128] (K2/K4)
+ENTMAX_STEPS = (("last_axis", (4096 * 4 * 64, 39, 1), 2.0),
+                ("db_armnet", (1024, 43, 32), 1.7),
+                ("av_armnet", (4096, 22, 32), 1.5),
+                ("av_armnet+", (4096, 22, 64), 2.0),
+                ("frappe_armnet+", (4096, 10, 16), 1.5),
+                ("ml_armnet+", (4096, 3, 8), 2.5),
+                ("cr_armnet", (4096, 39, 256), 2.0),
+                ("armnet_1h", CRITEO_SHAPE, 2.0))
 # the entmax backward's timed shapes: the steps, then columns past the
 # forward's register buckets
 ENTMAX_BWD_SHAPES = (CRITEO_SHAPE, FRAPPE_SHAPE, DIABETES_SHAPE,
@@ -307,6 +325,10 @@ def bench_table_grad():
 
 
 def bench_entmax():
+    """K1/K2 at the Criteo and Frappe serving shapes at every alpha, then at
+    ENTMAX_STEPS beside the bound and the plain version: device and
+    host-inclusive ms, the route and its blocks per SM, the max abs
+    difference from the plain version."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     for shape in (CRITEO_SHAPE, FRAPPE_SHAPE):
         x = torch.randn(shape, generator=g, device="cuda") * 3.0
@@ -317,39 +339,151 @@ def bench_entmax():
                 return entmax_cuda.entmax_kernel(x, alpha, 1)
 
             yield {"entmax_fwd": list(shape), "alpha": alpha,
-                   "route": entmax_cuda.route_for(shape[1]),
+                   "route": entmax_cuda.route_for(shape[1], shape[2],
+                                                  shape[0], alpha),
                    "ms": time_ms(call), "host_incl_ms": host_incl_ms(call),
                    "max_abs_err": err}
+    for name, shape, alpha in ENTMAX_STEPS:
+        outer, d, inner = shape
+        x = torch.randn(shape, generator=g, device="cuda") * 3.0
+
+        def call():
+            return entmax_cuda.entmax_kernel(x, alpha, 1)
+
+        def plain():
+            return entmax_cuda.entmax_plain(x, alpha, 1)
+
+        err = float((call() - plain()).abs().max())
+        bound_ms, by = entmax_bound_ms(shape, alpha)
+        yield {"entmax_fwd": name, "shape": list(shape), "alpha": alpha,
+               "route": entmax_cuda.route_for(d, inner, outer, alpha),
+               "blocks_per_sm": entmax_cuda.fwd_blocks_per_sm(d, inner, outer,
+                                                              alpha),
+               "ms": time_ms(call), "host_incl_ms": host_incl_ms(call),
+               "plain_ms": time_ms(plain, 5, 1), "bound_ms": bound_ms,
+               "bound_by": by, "max_abs_err": err}
 
 
 def bench_entmax_bwd():
-    """K3/K4 at ENTMAX_BWD_SHAPES and every alpha, y from the forward
-    kernel: device and host-inclusive ms, the bound, the max abs difference
-    from the plain version, blocks per SM; first the registers and spills
-    of its instantiations."""
+    """K3/K4 at ENTMAX_BWD_SHAPES and every alpha, then at ENTMAX_STEPS
+    beside the plain version, y from the forward kernel: device and
+    host-inclusive ms, the bound, the max abs difference from the plain
+    version, the route and its blocks per SM; first the registers and
+    spills of its instantiations."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     yield {"entmax_bwd_ptxas": ptxas_report(build.build_log("entmax_bwd"))}
-    for shape in ENTMAX_BWD_SHAPES:
-        numel = shape[0] * shape[1] * shape[2]
-        for alpha in ALPHAS:
-            y = entmax_cuda.entmax_kernel(
-                torch.randn(shape, generator=g, device="cuda") * 3.0, alpha,
-                1)
-            dy = torch.randn(shape, generator=g, device="cuda")
+    steps = [(list(shape), shape, alpha) for shape in ENTMAX_BWD_SHAPES
+             for alpha in ALPHAS] + list(ENTMAX_STEPS)
+    for name, shape, alpha in steps:
+        d, inner = shape[1], shape[2]
+        y = entmax_cuda.entmax_kernel(
+            torch.randn(shape, generator=g, device="cuda") * 3.0, alpha, 1)
+        dy = torch.randn(shape, generator=g, device="cuda")
 
+        def call():
+            return entmax_cuda.entmax_bwd_kernel(y, dy, alpha, 1)
+
+        def plain():
+            return entmax_cuda.entmax_bwd_plain(y, dy, alpha, 1)
+
+        err = float((call() - plain()).abs().max())
+        numel = shape[0] * d * inner
+        bound_ms, by = bound(12 * numel,
+                             entmax_bwd_ops_per_element(alpha) * numel)
+        rec = {"entmax_bwd": name, "shape": list(shape), "alpha": alpha,
+               "ms": time_ms(call), "host_incl_ms": host_incl_ms(call),
+               "bound_ms": bound_ms, "bound_by": by,
+               "route": entmax_cuda.bwd_route_for(d, inner),
+               "blocks_per_sm": entmax_cuda.bwd_blocks_per_sm(d, alpha,
+                                                              inner),
+               "max_abs_err": err}
+        if isinstance(name, str):
+            rec["plain_ms"] = time_ms(plain, 5, 1)
+        yield rec
+
+
+def fwd_on_route(x, alpha, route):
+    """y = the forward kernel over axis 1 of the contiguous 3-D CUDA tensor
+    x on `route` (any route its C entries take there, not only route_for's;
+    no launch is counted)."""
+    outer, d, inner = x.shape
+    y = torch.empty_like(x)
+    fn = entmax_cuda.fwd_function(alpha, route)
+    if fn(*entmax_cuda.fwd_args(x, y, alpha, outer, d, inner, route)) != 0:
+        raise RuntimeError(f"entmax forward on {route} refused")
+    return y
+
+
+def bwd_on_route(y, dy, alpha, per_block):
+    """dx = the backward kernel over axis 1 of contiguous 3-D CUDA tensors
+    with `per_block` outer indices a block (0: the staged route; no launch
+    is counted)."""
+    outer, d, inner = y.shape
+    dx = torch.empty_like(y)
+    fn = build.function("entmax_bwd", "armnet_entmax_bwd",
+                        entmax_cuda.BWD_ARGTYPES)
+    if fn(y.data_ptr(), dy.data_ptr(), dx.data_ptr(), outer, d, inner,
+          per_block, entmax_cuda.g_mode_id(alpha), 2.0 - alpha,
+          build.raw_stream(y.device)) != 0:
+        raise RuntimeError(f"entmax backward at per_block {per_block} "
+                           f"refused")
+    return dx
+
+
+def fwd_routes(d, inner, alpha):
+    """The forward's routes whose C entries take (d, inner) at alpha with d
+    <= REGISTER_D and inner <= PACKED_LANES_INNER: the wide register route
+    (the only one before the packed route), and the packed route at 1, 2
+    and 4 lanes a column (the buckets csrc/entmax_fwd.cuh instantiates; one
+    lane in the newton mode)."""
+    routes = [("register", entmax_cuda.bucket_for(d))]
+    newton = solver_mode(alpha) == "newton"
+    for lanes, top in ((1, 64),) if newton else ((1, 64), (2, 32), (4, 16)):
+        bucket = entmax_cuda.bucket_for(d, lanes)
+        if bucket <= top and lanes * inner <= entmax_cuda.PACKED_THREADS:
+            routes.append(("packed", bucket, lanes))
+    return routes
+
+
+def bench_entmax_routes():
+    """Each of ENTMAX_STEPS on every route the kernels' C entries take
+    there, beside the one that route_for and bwd_route_for choose: the
+    forward on fwd_routes where its inner is small (the wide route, then
+    the packed one by lanes), the backward on the staged route (the only
+    one before the packed route) and the packed one with as many outer
+    indices a block as bwd_route_for gives and half as many; device ms,
+    blocks per SM and the max abs difference from the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for name, shape, alpha in ENTMAX_STEPS:
+        outer, d, inner = shape
+        x = torch.randn(shape, generator=g, device="cuda") * 3.0
+        yp = entmax_cuda.entmax_plain(x, alpha, 1)
+        chosen = entmax_cuda.route_for(d, inner, outer, alpha)
+        small = d <= entmax_cuda.REGISTER_D and \
+            inner <= entmax_cuda.PACKED_LANES_INNER
+        for route in fwd_routes(d, inner, alpha) if small else [chosen]:
             def call():
-                return entmax_cuda.entmax_bwd_kernel(y, dy, alpha, 1)
+                return fwd_on_route(x, alpha, route)
 
-            err = float((call() - entmax_cuda.entmax_bwd_plain(
-                y, dy, alpha, 1)).abs().max())
-            bound_ms, by = bound(12 * numel,
-                                 entmax_bwd_ops_per_element(alpha) * numel)
-            yield {"entmax_bwd": list(shape), "alpha": alpha,
-                   "ms": time_ms(call), "host_incl_ms": host_incl_ms(call),
-                   "bound_ms": bound_ms, "bound_by": by,
-                   "blocks_per_sm": entmax_cuda.bwd_blocks_per_sm(shape[1],
-                                                                  alpha),
-                   "max_abs_err": err}
+            yield {"entmax_fwd_route": name, "shape": list(shape),
+                   "alpha": alpha, "route": route, "chosen": route == chosen,
+                   "ms": time_ms(call),
+                   "blocks_per_sm": entmax_cuda.fwd_blocks_per_sm(
+                       d, inner, outer, alpha, route=route),
+                   "max_abs_err": float((call() - yp).abs().max())}
+        dy = torch.randn(shape, generator=g, device="cuda")
+        want = entmax_cuda.entmax_bwd_plain(yp, dy, alpha, 1)
+        top = entmax_cuda.bwd_route_for(d, inner)[1]
+        for per_block in sorted({0, top, top // 2}):
+            def call():
+                return bwd_on_route(yp, dy, alpha, per_block)
+
+            yield {"entmax_bwd_route": name, "shape": list(shape),
+                   "alpha": alpha, "per_block": per_block,
+                   "chosen": per_block == top, "ms": time_ms(call),
+                   "blocks_per_sm": entmax_cuda.bwd_blocks_per_sm(
+                       d, alpha, inner, per_block=per_block),
+                   "max_abs_err": float((call() - want).abs().max())}
 
 
 def arm_inputs(g, shape):
@@ -464,6 +598,7 @@ def main(composed_arm, argv=None):
     """Runs the named sections; `composed_arm` is the interaction that the
     arm section times K5/K6 beside."""
     sections = {"entmax": bench_entmax, "entmax_bwd": bench_entmax_bwd,
+                "entmax_routes": bench_entmax_routes,
                 "table_grad": bench_table_grad,
                 "arm": lambda: bench_arm(composed_arm)}
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])

@@ -18,3 +18,12 @@ extern "C" int armnet_entmax_fwd_fastpow(const float* x, float* y,
       x, y, outer, d, inner, bucket, n_iter, am1, inv_am1, c_hi,
       static_cast<cudaStream_t>(stream));
 }
+
+// *blocks = blocks per SM of the wide route's kernel in FASTPOW mode and
+// register bucket `bucket`; any other mode is refused. Returns the
+// cudaError_t.
+extern "C" int armnet_entmax_fwd_fastpow_blocks_per_sm(int bucket, int mode,
+                                                       int* blocks) {
+  if (mode != armnet::FASTPOW) return (int)cudaErrorInvalidValue;
+  return (int)armnet::fwd_blocks_per_sm<armnet::FASTPOW>(bucket, blocks);
+}

@@ -17,3 +17,12 @@ extern "C" int armnet_entmax_fwd_newton(const float* x, float* y,
       x, y, outer, d, inner, bucket, n_iter, am1, inv_am1, c_hi,
       static_cast<cudaStream_t>(stream));
 }
+
+// *blocks = blocks per SM of the wide route's kernel in NEWTON mode and
+// register bucket `bucket`; any other mode is refused. Returns the
+// cudaError_t.
+extern "C" int armnet_entmax_fwd_newton_blocks_per_sm(int bucket, int mode,
+                                                      int* blocks) {
+  if (mode != armnet::NEWTON) return (int)cudaErrorInvalidValue;
+  return (int)armnet::fwd_blocks_per_sm<armnet::NEWTON>(bucket, blocks);
+}

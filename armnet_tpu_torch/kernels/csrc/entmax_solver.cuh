@@ -86,8 +86,35 @@ __device__ __forceinline__ float fast_pow(float z, float inv_am1) {
   return z > 0.0f ? __int_as_float(__float2int_rz(pb)) : 0.0f;
 }
 
+// the sum of v over the LANES adjacent lanes (an aligned group of a warp)
+// that share a column, by an xor butterfly: every lane adds the same two
+// values at each step (a + b == b + a in IEEE), so all of them end with
+// the same bits and take the same branches after it
+template <int LANES>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int m = 1; m < LANES; m <<= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// the NaN-keeping max of v over the same group
+template <int LANES>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int m = 1; m < LANES; m <<= 1)
+    v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+
 // alpha-entmax of one column. On entry v[k], k < d, holds the column
 // already multiplied by alpha-1; on return it holds the entmax output.
+//
+// LANES > 1: the column is spread over LANES adjacent lanes of a warp, each
+// holding d of its entries in v (entmax_fwd.cuh's packed route); every
+// sum and the max are taken over the group (group_sum, group_max) after
+// each lane's own, so the sums add in another order than at LANES = 1,
+// and every lane of the group must call this together. LANES = 1 is the
+// column solve of the other routes, instruction for instruction.
 //
 // PAD: v[k] for d <= k < MAXD holds -inf, and the loops run over all MAXD
 // entries with no test of k < d. A padded entry changes nothing: it never
@@ -101,7 +128,7 @@ __device__ __forceinline__ float fast_pow(float z, float inv_am1) {
 // fl(mx - tau_lo) <= 1 (rounding is monotone), and the clamp at 1 never
 // bites; the bits are those of the max. A column with a NaN or an infinity
 // fails the test and keeps the max.
-template <int MAXD, int MODE, bool PAD = false>
+template <int MAXD, int MODE, bool PAD = false, int LANES = 1>
 __device__ __forceinline__ void entmax_column(float (&v)[MAXD], int d,
                                               int n_iter, float inv_am1,
                                               float c_hi) {
@@ -109,6 +136,7 @@ __device__ __forceinline__ void entmax_column(float (&v)[MAXD], int d,
 #pragma unroll
   for (int k = 0; k < MAXD; ++k)
     if (PAD || k < d) mx = max_nan(mx, v[k]);
+  mx = group_max<LANES>(mx);
   float tau_lo = mx - 1.0f;     // f(tau_lo) >= 0
   float tau_hi = mx - c_hi;     // f(tau_hi) <= 0
   const bool sat = PAD && mx - tau_lo <= 1.0f;
@@ -125,7 +153,7 @@ __device__ __forceinline__ void entmax_column(float (&v)[MAXD], int d,
       for (int k = 0; k < MAXD; ++k)
         if (PAD || k < d) s += pow_inv<MODE>(v[k] - tau, inv_am1);
     }
-    return s - 1.0f;
+    return group_sum<LANES>(s) - 1.0f;
   };
 
   float tau;
@@ -151,7 +179,7 @@ __device__ __forceinline__ void entmax_column(float (&v)[MAXD], int d,
 #pragma unroll
         for (int k = 0; k < MAXD; ++k)
           if (PAD || k < d) s += fast_pow(v[k] - m, inv_am1);
-        const bool pos = s - 1.0f >= 0.0f;
+        const bool pos = group_sum<LANES>(s) - 1.0f >= 0.0f;
         a = pos ? m : a;
         b = pos ? b : m;
       }
@@ -179,6 +207,8 @@ __device__ __forceinline__ void entmax_column(float (&v)[MAXD], int d,
           s2 += z > 0.0f ? p / fmaxf(z, kTiny) : 0.0f;
         }
       }
+      s = group_sum<LANES>(s);
+      s2 = group_sum<LANES>(s2);
       const float s1 = s - 1.0f;
       const bool pos = s1 >= 0.0f;
       tau_lo = pos ? tau : tau_lo;
@@ -197,6 +227,7 @@ __device__ __forceinline__ void entmax_column(float (&v)[MAXD], int d,
       sum += v[k];
     }
   }
+  sum = group_sum<LANES>(sum);
 #pragma unroll
   for (int k = 0; k < MAXD; ++k)
     if (PAD || k < d) v[k] = v[k] / sum;

@@ -17,11 +17,14 @@ use.) chip_smoke.py holds the same kernels to their plain versions at the
 serving shapes.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from armnet_tpu_torch.kernels import arm_cuda, entmax_cuda, scatter_cuda
+from armnet_tpu_torch.kernels import (arm_cuda, bench, entmax_cuda,
+                                      scatter_cuda)
 from armnet_tpu_torch.models import create_model
 from armnet_tpu_torch.models.config import ModelConfig
 from armnet_tpu_torch.ops.entmax import entmax_bisect
@@ -189,11 +192,12 @@ def test_entmax_bwd_kernel_matches_plain(cuda, alpha, shape, axis):
 @pytest.mark.parametrize("d", [1, 5, 39, 64, 65, 100, 300])
 @pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
 def test_entmax_bwd_kernel_any_d(cuda, alpha, d):
-    """The backward takes any d: in one stage of its slabs and in several
-    (d > 64), on 128 columns a row (its bulk copies) and on 37 (the
-    threads' own loads), with a NaN column, against the plain version."""
+    """The backward takes any d: on the staged route in one stage of its
+    slabs and in several (d > 64), on 128 columns a row (its bulk copies)
+    and on 130 (the threads' own loads), and on the packed route at 37
+    columns, with a NaN column, against the plain version."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    for inner in (128, 37):
+    for inner in (128, 130, 37):
         x = torch.randn((3, d, inner), generator=g, device=cuda) * 3.0
         x[1, d // 2, 5] = float("nan")
         y = entmax_cuda.entmax_kernel(x, alpha, 1)
@@ -209,7 +213,7 @@ def test_entmax_bwd_launch_after_an_occupancy_query(cuda):
     """An occupancy query at a short column leaves the kernel's shared
     memory limit where a later, longer launch (d = 47, 47 KB of slabs)
     still fits."""
-    assert entmax_cuda.bwd_blocks_per_sm(10, 2.0) >= 8
+    assert entmax_cuda.bwd_blocks_per_sm(10, 2.0, 128) >= 8
     x = torch.randn((4, 47, 128), device=cuda)
     y = entmax_cuda.entmax_kernel(x, 2.0, 1)
     dy = torch.randn_like(y)
@@ -240,6 +244,132 @@ def test_entmax_autograd_launches_the_bwd_kernel(cuda):
     with pytest.raises(ValueError, match="differ"):
         entmax_cuda.entmax_bwd_kernel(x.detach(), x.detach()[:2], 2.0, 1)
     assert entmax_cuda.BWD_LAUNCHES == before + 1
+
+
+def _bwd_vs_plain(dk, y, dy, alpha, axis, nan=False):
+    """The backward kernel's dk against the plain version from y and dy at
+    2e-5; past alpha 2 against the float64 VJP of the same y and dy within
+    1e-5 of its norm (see _fwd_bwd_vs_plain)."""
+    dp = entmax_cuda.entmax_bwd_plain(y, dy, alpha, axis)
+    if alpha <= 2.0:
+        torch.testing.assert_close(dk, dp, rtol=0, atol=2e-5, equal_nan=nan)
+        return
+    assert bool((dk.isnan() == dp.isnan()).all())
+    d64 = entmax_cuda.entmax_bwd_plain(y.double(), dy.double(),
+                                       alpha, axis).nan_to_num(0.0)
+    gap = float((dk.double().nan_to_num(0.0) - d64).norm())
+    assert gap <= 1e-5 * float(d64.norm()), (gap, float(d64.norm()))
+
+
+def _fwd_bwd_vs_plain(x, alpha, axis, dy=None, nan=False):
+    """The entmax forward and backward kernels against their plain versions
+    on x (dy: the cotangent, drawn like x where None), at the tolerances of
+    the tests above; on a 3-D x over axis 1 also against the routes they
+    replace, bit for bit: a packed forward of one lane a column against the
+    wide register route (the same solve), the packed backward against the
+    staged route (the same sums in the same order). Past alpha 2, where g =
+    y^(2 - alpha) is unbounded as y -> 0 and dx = dy*g - q*g cancels, two
+    float32 computations of dx differ by more than 2e-5 on large draws (the
+    staged route, the parent design, read 3.1e-5 from the plain version on
+    4.3M entries at alpha 2.5): there the backward is held to the float64
+    VJP of the same y and dy within 1e-5 of its norm, the norm-wise
+    tolerance chip_smoke.py holds every kernel to."""
+    yk = entmax_cuda.entmax_kernel(x, alpha, axis)
+    yp = entmax_cuda.entmax_plain(x, alpha, axis)
+    dy = torch.randn_like(x) if dy is None else dy
+    dk = entmax_cuda.entmax_bwd_kernel(yk, dy, alpha, axis)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(yk, yp, rtol=0,
+                               atol=1e-5 if alpha > 2 else 5e-6,
+                               equal_nan=nan)
+    _bwd_vs_plain(dk, yk, dy, alpha, axis, nan)
+    if x.ndim == 3 and axis == 1:
+        outer, d, inner = x.shape
+        route = entmax_cuda.route_for(d, inner, outer, alpha)
+        if route[0] == "packed" and route[2] == 1:
+            torch.testing.assert_close(
+                yk, bench.fwd_on_route(x, alpha, ("register", route[1])),
+                rtol=0, atol=0, equal_nan=True)
+        if entmax_cuda.bwd_route_for(d, inner)[0] == "packed":
+            torch.testing.assert_close(
+                dk, bench.bwd_on_route(yk, dy, alpha, 0), rtol=0, atol=0,
+                equal_nan=True)
+    return yk, dk
+
+
+@pytest.mark.parametrize("d", [3, 10, 39, 43, 65])
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_entmax_kernels_every_small_inner(cuda, alpha, d):
+    """Every inner from 1 to 130, across the packed routes' edges (the
+    forward's 16 / 17 and 32 / 33, the backward's 127 / 128), on 257 outer
+    indices (no multiple of a block's): the forward with 2 or 4 lanes a
+    column there up to inner 32 below alpha 2, and one lane on as many
+    outer indices as fill FILL_COLUMNS columns at inner 1, 16 and 32; both
+    kernels against their plain versions and the routes they replace."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    torch.manual_seed(d)
+    for inner in range(1, 131):
+        outers = [257]
+        if inner in (1, 16, 32):
+            outers.append(entmax_cuda.FILL_COLUMNS // inner + 3)
+        for outer in outers:
+            x = torch.randn((outer, d, inner), generator=g,
+                            device=cuda) * 3.0
+            _fwd_bwd_vs_plain(x, alpha, 1)
+
+
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_entmax_kernels_unaligned_span(cuda, alpha):
+    """Inputs that start 4 bytes past a 16-byte boundary (a contiguous view
+    at storage offset 1): the packed routes' thread loads instead of their
+    16-byte loads and bulk copies, on the last axis and at db_armnet's
+    [B, 43, 32]."""
+    torch.manual_seed(11)
+    for shape, axis in (((1000, 39), -1), ((300, 43, 32), 1),
+                        ((129, 10, 3), 1)):
+        n = math.prod(shape)
+        x = (torch.randn(n + 1, device=cuda) * 3.0)[1:].view(shape)
+        dy = torch.randn(n + 1, device=cuda)[1:].view(shape)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
+        yk = entmax_cuda.entmax_kernel(x, alpha, axis)
+        y = torch.empty(n + 1, device=cuda)[1:].view(shape)
+        y.copy_(yk)
+        dk = entmax_cuda.entmax_bwd_kernel(y, dy, alpha, axis)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(yk, entmax_cuda.entmax_plain(x, alpha,
+                                                                axis),
+                                   rtol=0, atol=1e-5 if alpha > 2 else 5e-6)
+        _bwd_vs_plain(dk, y, dy, alpha, axis)
+
+
+@pytest.mark.parametrize("shape", [(257, 39, 1), (257, 10, 2),
+                                   (300, 43, 32), (4096, 22, 32)])
+@pytest.mark.parametrize("alpha", [1.5, 1.7, 2.0, 2.5])
+def test_entmax_kernels_packed_nan_column(cuda, alpha, shape):
+    """A NaN in one column makes that column NaN in y and dx, and no other,
+    on the packed routes (one lane a column and several)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=cuda) * 3.0
+    x[17, shape[1] // 2, shape[2] - 1] = float("nan")
+    yk, dk = _fwd_bwd_vs_plain(x, alpha, 1, nan=True)
+    for t in (yk, dk):
+        assert bool(t[17, :, -1].isnan().all())
+        assert int(t.isnan().sum()) == shape[1]
+
+
+def test_entmax_autograd_on_the_last_axis_launches_once_each(cuda):
+    """ops/entmax.entmax_bisect over the last axis of [B, K, O, F] (the
+    packed routes, inner 1): one forward and one backward launch, and its
+    gradient the plain VJP's."""
+    x = torch.randn(64, 4, 8, 39, device=cuda, requires_grad=True)
+    dy = torch.randn(64, 4, 8, 39, device=cuda)
+    before = (entmax_cuda.LAUNCHES, entmax_cuda.BWD_LAUNCHES)
+    y = entmax_bisect(x, 2.0, axis=-1)
+    y.backward(dy)
+    assert (entmax_cuda.LAUNCHES, entmax_cuda.BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(x.grad, entmax_cuda.entmax_bwd_plain(
+        y.detach(), dy, 2.0, -1), rtol=0, atol=2e-5)
 
 
 def _tg_case(cuda, n, e, nrows, lo=0, hi=None, seed=0):

@@ -4,6 +4,8 @@ and backward, plus the port's CPU dispatch. The CUDA kernels themselves are
 held against the plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -92,16 +94,105 @@ def test_solver_branches():
 
 @pytest.mark.parametrize("d", range(1, 66))
 def test_forward_register_bucket(d):
-    """The forward kernel's route: up to 64 entries the register bucket,
-    the least multiple of 8 that holds d (the Criteo d = 39 in 40, Frappe's
-    10 in 16, Diabetes130's 43 in 48); past 64 the shared-memory column in
-    blocks of 128 columns, with no raise."""
-    where, n = entmax_cuda.route_for(d)
+    """The forward kernel's route at a wide inner (the armnet_1h gates'
+    128 channels): up to 64 entries the register bucket, the least multiple
+    of 8 that holds d (the Criteo d = 39 in 40, Frappe's 10 in 16,
+    Diabetes130's 43 in 48); past 64 the shared-memory column in blocks of
+    128 columns, with no raise."""
+    where, n = entmax_cuda.route_for(d, 128, 4096, 2.0)
     if d > entmax_cuda.REGISTER_D:
         assert (where, n) == ("shared", 128)
         return
     assert where == "register"
     assert n % 8 == 0 and n - 8 < d <= n <= entmax_cuda.REGISTER_D
+
+
+# (d, inner) over the packed routes' edges: the forward's inner 16 / 17 (one
+# lane) and 32 / 33 (four lanes), the backward's 127 / 128, d 1, 64 (the
+# last register bucket), 65 and 300 (past it), the shapes of the
+# multi-head presets and the last axis
+ROUTE_D = [1, 2, 3, 10, 22, 39, 43, 64, 65, 300]
+ROUTE_INNER = [1, 2, 3, 8, 16, 17, 31, 32, 33, 64, 127, 128, 256]
+
+
+def _packed_fwd_smem(d, inner, per_block):
+    """csrc/entmax_fwd.cuh packed_smem: a column d + 1 floats apart at inner
+    1 and an even d, else the outer indices' d * inner floats."""
+    return 4 * per_block * (d + 1 if inner == 1 and d % 2 == 0 else d * inner)
+
+
+@pytest.mark.parametrize("inner", ROUTE_INNER)
+@pytest.mark.parametrize("d", ROUTE_D)
+def test_routes_by_shape(d, inner):
+    """route_for and bwd_route_for: the packed forward up to d 64 and inner
+    16, or inner 32 where the view has too few columns to fill the card
+    and a column takes 2 or 4 lanes (128 / (lanes * inner) outer indices a
+    block of 128 threads, lanes * bucket
+    >= d in an instantiated (lanes, bucket) pair, more than 8 entries a
+    lane for a halved group, its span within the 48 KB a block gets
+    without an attribute), the wide routes past them; the packed backward
+    up to inner 127 wherever one outer index's two spans fit 64 KB
+    (per_block * inner <= 128, 16-byte aligned starts where a multiple of
+    4 floats allows), the staged route past it; every block's shared
+    memory within Hopper's 232,448 B; the column count moves only the
+    lanes and, through them, the forward's route between inner 17 and 32;
+    the newton mode (alpha 2.5) keeps one lane."""
+    for outer, alpha in itertools.product((1, 7, 1024, 1 << 20),
+                                          (1.7, 2.0, 2.5)):
+        route = entmax_cuda.route_for(d, inner, outer, alpha)
+        if route[0] == "packed":
+            where, bucket, lanes = route
+            per_block = 128 // (lanes * inner)
+            assert d <= entmax_cuda.REGISTER_D and lanes in (1, 2, 4)
+            assert inner <= entmax_cuda.PACKED_FWD_INNER or lanes > 1
+            step = 8 if lanes == 1 else 4
+            assert bucket % step == 0 and 8 <= bucket and bucket * lanes <= 64
+            assert (bucket - step) * lanes < d <= bucket * lanes
+            assert per_block >= 1
+            assert _packed_fwd_smem(d, inner, per_block) <= 48 * 1024
+            if outer * inner >= entmax_cuda.FILL_COLUMNS or alpha > 2.0:
+                assert lanes == 1
+            elif lanes > 1:
+                assert -(-d // (lanes // 2)) > 8
+        elif d <= entmax_cuda.REGISTER_D:
+            assert inner > entmax_cuda.PACKED_FWD_INNER
+            assert route == ("register", -(-d // 8) * 8)
+        else:
+            assert route[0] in ("shared", "global")
+            if route[0] == "shared":
+                assert 4 * d * route[1] <= entmax_cuda.SMEM_BYTES
+    where, per_block = entmax_cuda.bwd_route_for(d, inner)
+    if inner <= entmax_cuda.PACKED_BWD_INNER and \
+            8 * d * inner <= entmax_cuda.PACKED_BWD_SMEM:
+        assert where == "packed" and 1 <= per_block * inner <= 128
+        room = -(-per_block * d * inner // 32) * 32
+        assert 8 * room <= entmax_cuda.PACKED_BWD_SMEM
+        step = 4 // np.gcd(4, d * inner)
+        assert per_block % step == 0 or per_block < step
+        assert per_block > 128 // inner - 4 or 8 * (per_block + step) \
+            * d * inner > entmax_cuda.PACKED_BWD_SMEM
+    else:
+        assert (where, per_block) == ("staged", 0)
+        assert 8 * min(d, 64) * 128 <= entmax_cuda.SMEM_BYTES
+
+
+@pytest.mark.parametrize("outer,inner,alpha,lanes", [
+    (1 << 20, 1, 2.0, 1), (1024, 32, 1.7, 4), (512, 32, 1.5, 4),
+    (4096, 16, 1.7, 1), (2048, 16, 2.0, 4), (100, 1, 1.7, 4),
+    (100, 33, 1.7, 0), (4096, 32, 1.7, 0), (1 << 20, 17, 2.0, 0),
+    (1024, 32, 2.5, 0), (1024, 16, 2.5, 1)])
+def test_forward_lanes_by_column_count(outer, inner, alpha, lanes):
+    """The packed forward spreads a column of 43 entries over 4 lanes where
+    the view has fewer than FILL_COLUMNS columns (db_armnet's [1024, 43,
+    32] at alpha 1.7) up to inner 32, and keeps one lane where the card is
+    full (the last axis of mh_breakdown's gates, 1,048,576 columns) and in
+    the newton mode (alpha 2.5); past inner 16 one lane takes the wide
+    route (0 here)."""
+    route = entmax_cuda.route_for(43, inner, outer, alpha)
+    if lanes == 0:
+        assert route == ("register", 48)
+    else:
+        assert route[0] == "packed" and route[2] == lanes
 
 
 @pytest.mark.parametrize("mangled,name", [
@@ -231,6 +322,53 @@ def test_long_columns_match_pallas_interpret(alpha, d, entry):
     dxp = entmax_cuda.entmax_bwd_plain(torch.from_numpy(yj.copy()),
                                        torch.from_numpy(dy), alpha, 1)
     np.testing.assert_allclose(dxp.numpy(), dxj, atol=BWD_ATOL)
+
+
+# the packed routes' shapes at a small batch: the last axis of [B, K, O, F]
+# (mh_breakdown's gates, F 39), the multi-head presets' gates [B, F, C]
+# (db_armnet 43 x 32, frappe_armnet+ 10 x 16, ml_armnet+ 3 x 8, av_armnet
+# 22 x 32, av_armnet+ 22 x 64) and inner 1-3 on a ragged outer
+SMALL_INNER = [((2, 2, 3, 39), -1), ((3, 43, 32), 1), ((5, 10, 16), 1),
+               ((6, 3, 8), 1), ((3, 22, 32), 1), ((3, 22, 64), 1),
+               ((7, 11, 1), 1), ((5, 9, 2), 1), ((3, 13, 3), 1)]
+
+
+@pytest.mark.parametrize("shape,axis", SMALL_INNER)
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_small_inner_matches_jax(alpha, shape, axis):
+    """The port's plain forward, VJP and autograd where inner is small (the
+    packed routes' shapes on the card) against the JAX package: its Pallas
+    entry in interpret mode (the general kernels K1/K3 on the last axis and
+    a ragged inner, the mid-axis K2/K4 otherwise), whose solver the port's
+    is, at the file's tolerances (autograd where alpha <= 2, as
+    test_backward_matches_pallas_interpret holds it); and its default CPU
+    path (50 plain bisections): the VJP from that path's own y at
+    BWD_ATOL, the forward and autograd no farther from it than the Pallas
+    kernel is, within the same tolerances. (On db_armnet's [3, 43, 32]
+    here the Pallas solver itself misses the default path by 1.8e-5 at
+    alpha 1.7 and 3.7e-4 at 2.5, on a column whose second entry sits at the
+    support's edge: ROADMAP.md section 3.)"""
+    x, dy = _x(shape, seed=len(shape) + shape[1]), _x(shape, seed=3,
+                                                       scale=1.0)
+    xt = torch.from_numpy(x).requires_grad_()
+    yt = entmax_bisect(xt, alpha, axis=axis)
+    yt.backward(torch.from_numpy(dy))
+    yt, gt = yt.detach().numpy(), xt.grad.numpy()
+    with pltpu.force_tpu_interpret_mode():
+        yk, dxk = _jax_vjp(lambda v: entmax_pallas(v, alpha=alpha, axis=axis),
+                           x, dy)
+    yj, dxj = _jax_vjp(lambda v: jax_entmax_bisect(v, alpha, axis=axis), x,
+                       dy)
+    np.testing.assert_allclose(yt, yk, atol=_tol(alpha))
+    if alpha <= 2.0:
+        np.testing.assert_allclose(gt, dxk, atol=BWD_ATOL)
+    for y_ref, dx_ref in ((yk, dxk), (yj, dxj)):
+        dxp = entmax_cuda.entmax_bwd_plain(torch.from_numpy(y_ref.copy()),
+                                           torch.from_numpy(dy), alpha, axis)
+        np.testing.assert_allclose(dxp.numpy(), dx_ref, atol=BWD_ATOL)
+    assert (np.abs(yt - yj) <= np.abs(yk - yj) + _tol(alpha)).all()
+    if alpha <= 2.0:
+        assert (np.abs(gt - dxj) <= np.abs(dxk - dxj) + BWD_ATOL).all()
 
 
 @pytest.mark.parametrize("axis", [0, -1])
