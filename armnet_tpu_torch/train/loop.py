@@ -46,6 +46,7 @@ from armnet_tpu_torch.train.step import (create_train_state, init_meters,
                                          task_fns)
 from armnet_tpu_torch.utils.config import compute_dtype
 from armnet_tpu_torch.utils.logging import AverageMeter, time_since
+from armnet_tpu_torch.utils.tracing import recording
 
 __all__ = ["Trainer", "run_epoch"]
 
@@ -208,9 +209,11 @@ class Trainer:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities,
-                     on_trace_ready=tensorboard_trace_handler(
-                         self.profile_dir)):
+        # the recorder makes the feed's and the step's spans show in the
+        # profile under their names
+        with recording(), profile(activities=activities,
+                                  on_trace_ready=tensorboard_trace_handler(
+                                      self.profile_dir)):
             auc = self._run(epoch, epochs, 0, eval_freq, report_freq)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

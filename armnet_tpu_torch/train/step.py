@@ -25,8 +25,11 @@ and masks gathered over the group. A per-rank mean averaged over ranks
 would differ wherever the final batch's padding falls unevenly.
 
 The quality metric (ROC-AUC or accuracy) is taken on the logits from before
-the update. Meters are tensors on the model's device, so a step never waits
-for the device; the loop reads them only at report and epoch boundaries.
+the update, and the meters are updated before the clamp and Adam. The
+step's four phases are spans (utils/tracing.py): armnet.step.forward,
+.backward, .meters and .update, each carrying the step index. Meters are
+tensors on the model's device, so a step never waits for the device; the
+loop reads them only at report and epoch boundaries.
 With debug_nans (--debug_nans) a step also waits for one flag from the
 device: a NaN or an infinity in the loss or a gradient raises
 FloatingPointError before the update, as jax_debug_nans stops the JAX
@@ -41,6 +44,7 @@ from armnet_tpu_torch.ops.layers import batch_mask_scope, dropout_scope
 from armnet_tpu_torch.parallel.mesh import all_gather_cat
 from armnet_tpu_torch.train.metrics import (masked_accuracy, masked_bce,
                                             masked_roc_auc, masked_softmax_ce)
+from armnet_tpu_torch.utils.tracing import span
 
 __all__ = ["TrainState", "create_train_state", "make_optimizer",
            "make_train_step", "make_eval_step", "init_meters", "task_fns",
@@ -182,23 +186,28 @@ def make_train_step(task="binary", clip=1.0, generator=None,
     group = _data_group(mesh)
 
     def train_step(state, meters, batch):
-        if param_transform is not None:
-            param_transform(state.model)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, logits = forward_loss(state.model, batch, loss_fn, generator,
-                                    group)
-        loss.backward()
-        sum_grads(state.model.parameters(), group)
-        with torch.no_grad():
+        step = state.step
+        with span("armnet.step.forward", step=step):
+            if param_transform is not None:
+                param_transform(state.model)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, logits = forward_loss(state.model, batch, loss_fn,
+                                        generator, group)
+        with span("armnet.step.backward", step=step):
+            loss.backward()
+            sum_grads(state.model.parameters(), group)
+        with span("armnet.step.meters", step=step), torch.no_grad():
             loss, auc, n = _global_metrics(loss.detach(), logits.detach(),
                                            batch, metric_fn, group)
-        if debug_nans:
-            check_finite(loss, state.model, state.step)
-        clamp_grads(state.model.parameters(), clip)
-        state.optimizer.step()
+            meters = _update_meters(meters, loss, auc, n,
+                                    _overflow(overflow_fn, batch))
+        with span("armnet.step.update", step=step):
+            if debug_nans:
+                check_finite(loss, state.model, step)
+            clamp_grads(state.model.parameters(), clip)
+            state.optimizer.step()
         state.step += 1
-        return _update_meters(meters, loss, auc, n,
-                              _overflow(overflow_fn, batch))
+        return meters
 
     return train_step
 

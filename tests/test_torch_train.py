@@ -472,7 +472,8 @@ def test_resume_continues_the_loss_curve(tmp_path, quiet_logger):
 def test_cli_trains_on_the_cpu_and_predict_scores_it(tmp_path, capsys):
     """train.cli.main for two epochs on a tiny split: metrics.jsonl rows,
     best/last training checkpoints that predict scores, and a --resume
-    with a --profile_dir trace."""
+    with a --profile_dir trace that names the step's and the feed's
+    spans."""
     write_split(str(tmp_path / "data" / "tiny"), seed=4)
     common = ["--model", "armnet_1h", "--nfeat", str(NFEAT), "--nfield",
               str(NFIELD), "--nemb", str(NEMB), "--h", "16", "--mlp_nhid",
@@ -504,7 +505,13 @@ def test_cli_trains_on_the_cpu_and_predict_scores_it(tmp_path, capsys):
                              "r", "--resume", str(ck), "--repeat", "2",
                              "--profile_dir", str(tmp_path / "prof")])
     assert [r[0] for r in res] == [3, 4]
-    assert any(n.endswith(".json") for n in os.listdir(tmp_path / "prof"))
+    traces = [n for n in os.listdir(tmp_path / "prof") if n.endswith(".json")]
+    assert traces
+    # the profiled epoch shows the program's spans under their names
+    for n in traces:
+        written = (tmp_path / "prof" / n).read_text()
+        assert '"armnet.step.forward"' in written
+        assert '"armnet.feed.gather"' in written
     assert "repeat summary" in capsys.readouterr().out
     assert (tmp_path / "log" / "r.repeat_summary.log").exists()
 
