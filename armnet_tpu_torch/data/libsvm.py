@@ -27,19 +27,42 @@ Batch schema (unchanged): {'id' [B,F] int32, 'value' [B,F] f32, 'y' [B]
 f32, 'mask' [B] f32}. The final partial batch is padded to B with rows of
 id 0, value 1.0 and mask 0: value 1.0, not 0.0, keeps a pad row
 in-distribution for the models that clamp values into [1e-3, 1], and mask
-0 keeps it out of every metric and of the BatchNorm statistics. A shuffled
-iterator permutes the rows with RandomState(seed + epoch) and advances
-`epoch` each time an iteration starts, as the JAX iterator does.
+0 keeps it out of every metric and of the BatchNorm statistics.
 
-BatchIterator(device=...) hands over tensors on the device. On a CUDA
-device it keeps one batch in flight: while the caller runs step k, batch
-k+1 is already copied from pinned host memory with non_blocking on a copy
-stream of its own; the consuming stream waits on the copy's event before
-the batch is handed over, the device tensors are recorded on that stream,
-and the pinned source is kept until its copy has completed.
-ARMNET_PREFETCH_THREAD=1 moves the host batch assembly and the copy into a
-worker thread (queue depth 2; off by default, as in the JAX package; never
-in a multi-process run).
+Epoch order: a shuffled iterator permutes the rows with RandomState(seed +
+epoch).permutation(n) and advances `epoch` each time an iteration starts,
+as the JAX iterator does. The order is drawn by the native port of that
+permutation (data/native.py; numpy, warned, where it cannot be built):
+when a shuffled epoch starts, a worker thread draws the next epoch's
+order with the GIL released, and the next epoch takes it if its (seed,
+epoch, rows) still match, else draws its own at its start (the trainer
+resets `seed` and `epoch` after construction). `orders_ahead` and
+`orders_at_start` count the two.
+
+BatchIterator(device=...) hands over tensors on the device, by one of two
+paths, chosen at the first iteration (`resident` says which):
+
+  * resident: on a CUDA device whose free memory holds the rows within
+    RESIDENT_SHARE of it, the ids, values, labels and a mask column go to
+    the card once, with one pad row appended (a broadcast id view, as the
+    UCI sets have, goes as its one row and a zero row). Each epoch's order
+    goes to the card once, from pinned memory on a copy stream, its tail
+    past the rows pointing at the pad row, and the consuming stream waits
+    on the copy's event; each batch is index_select of the resident
+    columns at its slice of the order, on the consumer's stream: no host
+    gather, pinning or copy a batch.
+  * streaming (any other device, or rows that do not fit): the batch's
+    rows are gathered on the host. On a CUDA device one batch is kept in
+    flight: while the caller runs step k, batch k+1 is already copied from
+    pinned host memory with non_blocking on a copy stream of its own; the
+    consuming stream waits on the copy's event before the batch is handed
+    over, the device tensors are recorded on that stream, and the pinned
+    source is kept until its copy has completed. ARMNET_PREFETCH_THREAD=1
+    moves the host batch assembly and the copy into a worker thread (queue
+    depth 2; off by default, as in the JAX package; never in a
+    multi-process run).
+
+Both paths give the same batches, bit for bit.
 
 Multi-process runs (make_dataloaders(shard=(index, size), group=...)):
 each process of the data group parses only its byte-range shard; the
@@ -52,6 +75,7 @@ out first).
 
 import glob
 import hashlib
+import operator
 import os
 import queue
 import threading
@@ -66,9 +90,13 @@ from armnet_tpu_torch.parallel.mesh import all_reduce_values, multi_process
 from armnet_tpu_torch.utils.tracing import span
 
 __all__ = ["parse_libsvm", "parse_routed", "shard_byte_range", "cache_dir",
-           "LibsvmDataset", "BatchIterator", "make_dataloaders"]
+           "LibsvmDataset", "BatchIterator", "make_dataloaders", "draw_order",
+           "resident_bytes", "resident_fits", "RESIDENT_SHARE"]
 
 MMAP_BYTES = 512 * 1024 * 1024
+# the rows go to the card where they take at most this share of its free
+# memory at the first iteration
+RESIDENT_SHARE = 0.25
 
 
 def cache_dir():
@@ -314,6 +342,125 @@ def _process_local_rows(global_batch, index, size):
     return index * per, (index + 1) * per
 
 
+def draw_order(seed, n, out=None):
+    """numpy's RandomState(seed).permutation(n), bit for bit, into `out`
+    (int64 [n]; a new array for None): the native port, which releases the
+    GIL, else numpy with a warning. A seed numpy refuses raises numpy's
+    ValueError."""
+    seed = operator.index(seed)
+    if not 0 <= seed <= 0xFFFFFFFF:
+        np.random.RandomState(seed)          # raises numpy's own ValueError
+    if out is None:
+        out = np.empty((n,), np.int64)
+    try:
+        return native.permutation(seed, n, out)
+    except (OSError, RuntimeError) as e:
+        warnings.warn(f"native epoch order failed ({e}); drawing it with "
+                      f"numpy")
+    out[:] = np.random.RandomState(seed).permutation(n)
+    return out
+
+
+class _Ahead:
+    """The order of a coming epoch, drawn in a worker thread into a host
+    tensor (pinned where it goes on to the card). `key` is (seed, epoch,
+    rows)."""
+
+    def __init__(self, key, out):
+        self.key, self.out, self.error = key, out, None
+        self.thread = threading.Thread(target=self._draw, daemon=True,
+                                       name="armnet-order")
+        self.thread.start()
+
+    def _draw(self):
+        seed, epoch, n = self.key
+        try:
+            with span("armnet.feed.order_draw", epoch=epoch):
+                draw_order(seed + epoch, n, self.out.numpy())
+        except Exception as e:   # the epoch redraws, and raises, on its own
+            self.error = e
+
+    def take(self):
+        """The order, or None where the draw failed."""
+        self.thread.join()
+        return self.out if self.error is None else None
+
+
+def _order_tensor(n, pinned):
+    return torch.empty((n,), dtype=torch.int64, pin_memory=pinned)
+
+
+def _broadcast_ids(ds):
+    """Whether the ids are one row broadcast over the rows (the UCI sets)."""
+    return ds.ids.ndim == 2 and ds.ids.strides[0] == 0
+
+
+def resident_bytes(ds):
+    """The device bytes of a dataset's resident columns and of one epoch's
+    order: ids, values, labels and mask with a pad row, int64 order."""
+    n, f = len(ds), ds.nfield
+    ids = 2 * f * 4 if _broadcast_ids(ds) else (n + 1) * f * 4
+    return ids + (n + 1) * (f * 4 + 4 + 4) + n * 8
+
+
+def _on_cuda(device):
+    return device is not None and device.type == "cuda"
+
+
+def resident_fits(ds, device):
+    """Whether the dataset's rows go to the device: a CUDA device whose
+    free memory holds them within RESIDENT_SHARE of it."""
+    if not _on_cuda(device):
+        return False
+    free, _ = torch.cuda.mem_get_info(device)
+    return resident_bytes(ds) <= RESIDENT_SHARE * free
+
+
+def _upload(arr, pad, device):
+    """arr [N, ...] with the row `pad` appended, as a tensor on device."""
+    with warnings.catch_warnings():
+        # a read-only memmap of the row cache: read, never written
+        warnings.filterwarnings("ignore", message=".*not writable")
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+    out = torch.empty((src.shape[0] + 1, *src.shape[1:]), dtype=src.dtype,
+                      device=device)
+    out[:-1].copy_(src)
+    out[-1] = pad
+    return out
+
+
+class _Resident:
+    """A dataset's rows on a device, each column with one pad row at index
+    n (id 0, value 1.0, label 0, mask 0): a batch is index_select of the
+    columns at its slice of the epoch's order. Broadcast ids keep two rows
+    (the pad's zeros, the broadcast row), selected by the batch's mask."""
+
+    def __init__(self, ds, device):
+        self.ds, self.n = ds, len(ds)
+        f = ds.nfield
+        self.broadcast = _broadcast_ids(ds)
+        if self.broadcast:
+            self.ids = torch.zeros((2, f), dtype=torch.int32, device=device)
+            if self.n:
+                self.ids[1] = torch.from_numpy(np.array(ds.ids[0]))
+        else:
+            self.ids = _upload(ds.ids, 0, device)
+        self.values = _upload(ds.values, 1.0, device)
+        self.labels = _upload(ds.labels, 0.0, device)
+        self.mask = torch.ones((self.n + 1,), dtype=torch.float32,
+                               device=device)
+        self.mask[self.n] = 0.0
+
+    def take(self, idx):
+        """The batch at row indices idx (int64 on the device; n is the pad
+        row)."""
+        mask = self.mask.index_select(0, idx)
+        ids = (self.ids.index_select(0, mask.long()) if self.broadcast
+               else self.ids.index_select(0, idx))
+        return {"id": ids, "value": self.values.index_select(0, idx),
+                "y": self.labels.index_select(0, idx), "mask": mask}
+
+
 class _Staged:
     """A batch on its way to the device: the device tensors, the copy's
     event, and the pinned host tensors it is copied from."""
@@ -349,16 +496,45 @@ class BatchIterator:
         self._inflight = []          # (event, pinned) of copies in flight
         self._surplus_warned = False
         self.thread = None           # the prefetch worker of the last epoch
+        self.resident = False        # the rows on the device (at iteration)
+        self._rows_on_device = None  # their _Resident
+        self._placed = None          # the dataset the choice was made for
+        self._ahead = None           # the next epoch's order, being drawn
+        self.orders_ahead = 0        # shuffled epochs that took it
+        self.orders_at_start = 0     # and those that drew at their start
 
     def __len__(self):
         n = self.local_shard_total if self.local_shard_total else len(self.ds)
         return (n + self.bsz - 1) // self.bsz
 
-    def _order(self):
+    def _order(self, pinned):
+        """The epoch's order as an int64 host tensor: the one drawn ahead
+        where its key matches, else drawn now."""
         n = len(self.ds)
-        if self.shuffle:
-            return np.random.RandomState(self.seed + self.epoch).permutation(n)
-        return np.arange(n)
+        if not self.shuffle:
+            return torch.arange(n)
+        ahead, self._ahead = self._ahead, None
+        if ahead is not None and ahead.key == (self.seed, self.epoch, n):
+            order = ahead.take()
+            if order is not None:
+                self.orders_ahead += 1
+                return order
+        order = _order_tensor(n, pinned)
+        draw_order(self.seed + self.epoch, n, order.numpy())
+        self.orders_at_start += 1
+        return order
+
+    def _place(self):
+        """The resident rows, or None for the streaming path; chosen once
+        for a dataset, at its first iteration."""
+        if self._placed is not self.ds:
+            self._placed, self._rows_on_device = self.ds, None
+            self.resident = resident_fits(self.ds, self.device)
+            if self.resident:
+                with span("armnet.feed.upload"):
+                    self._rows_on_device = _Resident(
+                        self.ds, self.device or torch.device("cpu"))
+        return self._rows_on_device
 
     def _rows(self, idx, lo, hi):
         """numpy rows [lo, hi) of the padded batch whose real rows are idx."""
@@ -421,12 +597,17 @@ class BatchIterator:
                 self._copy_stream.synchronize()
             self._inflight = []
 
-    def _plan(self):
+    def _plan(self, pinned):
         """(order, number of batches, rows drawn per batch, [lo, hi) of the
-        global batch this process holds)."""
+        global batch this process holds); a shuffled epoch starts drawing
+        the next one's order."""
         with span("armnet.feed.order", epoch=self.epoch):
-            order = self._order()
+            order = self._order(pinned)
         self.epoch += 1
+        if self.shuffle:
+            n = len(self.ds)
+            self._ahead = _Ahead((self.seed, self.epoch, n),
+                                 _order_tensor(n, pinned))
         nb = len(self)
         lo, hi = (0, self.bsz) if self.data_parallel is None else (
             _process_local_rows(self.bsz, *self.data_parallel))
@@ -460,9 +641,53 @@ class BatchIterator:
             del host
         return staged
 
+    def _device_order(self, order, nb, step):
+        """The epoch's order on the device, its tail past the rows (up to
+        nb * step) pointing at the pad row, and the event the consumer
+        waits on (None where no copy stream is used)."""
+        n = order.shape[0]
+        total = max(n, nb * step)
+        if not _on_cuda(self.device):
+            full = torch.full((total,), n, dtype=torch.int64)
+            full[:n] = order
+            return full, None
+        if not self.shuffle:
+            return torch.arange(total, device=self.device).clamp_(max=n), None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            dev = torch.empty((total,), dtype=torch.int64, device=self.device)
+            dev[:n].copy_(order, non_blocking=True)
+            if total > n:
+                dev[n:].fill_(n)
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return dev, event
+
+    def _iter_resident(self, rows, epoch, order, nb, step, lo, hi):
+        size = hi - lo
+        first = 0 if self.local_shard_total else lo
+        dev, event = self._device_order(order, nb, step)
+        for b in range(nb):
+            with span("armnet.feed.take", epoch=epoch, batch=b):
+                if event is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(event)
+                    dev.record_stream(stream)
+                start = b * step + first
+                batch = rows.take(dev[start:start + size])
+            yield batch
+
     def __iter__(self):
         epoch = self.epoch
-        order, nb, step, (lo, hi) = self._plan()
+        rows = self._place()
+        pinned = rows is not None and _on_cuda(self.device)
+        order, nb, step, (lo, hi) = self._plan(pinned)
+        if rows is not None:
+            yield from self._iter_resident(rows, epoch, order, nb, step, lo,
+                                           hi)
+            return
+        order = order.numpy()
         if (os.environ.get("ARMNET_PREFETCH_THREAD", "0") == "1"
                 and not multi_process()):
             yield from self._iter_threaded(epoch, order, nb, step, lo, hi)

@@ -1,38 +1,53 @@
-"""ctypes binding of the port's native libsvm parser (data/csrc/
-libsvm_parser.cc, the port's own copy of the JAX package's parser).
+"""ctypes bindings of the port's two native libraries: the libsvm parser
+(data/csrc/libsvm_parser.cc, the port's own copy of the JAX package's
+parser) and the shuffled feed's epoch order (data/csrc/legacy_order.cc).
 
-The library is built at first use with g++ and the flags below (no
+Each library is built at first use with g++ and the flags below (no
 -march=native: a host-specific ISA would raise SIGILL on another machine,
 a signal no fallback can catch) into build/armnet_tpu_torch/ at the
 repository root, named by a hash of the flags and the source, through a
 pid-suffixed temporary file and os.replace, so processes that build at
 once never load a half-written library. Nothing is built at import time.
+A ctypes call releases the GIL while the C function runs.
 
-The four C functions: libsvm_count_rows, libsvm_parse, and their byte-range
-forms libsvm_count_rows_range, libsvm_parse_range (the rows whose first
-byte lies in [lo, hi)). Malformed lines are skipped and counted; the count
-comes back as a warning.
+The parser's four C functions: libsvm_count_rows, libsvm_parse, and their
+byte-range forms libsvm_count_rows_range, libsvm_parse_range (the rows
+whose first byte lies in [lo, hi)). Malformed lines are skipped and
+counted; the count comes back as a warning.
+
+The order's one C function, legacy_permutation, is numpy's legacy
+RandomState(seed).permutation(n) bit for bit (MT19937 seeded by
+init_genrand, Fisher-Yates from n - 1 down to 1 with numpy's
+random_interval). BatchIterator draws the next epoch's order with it in a
+worker thread, which the main thread's launches run beside: numpy's own
+shuffle holds the GIL. Both callers fall back to numpy, with a warning,
+where a library cannot be built or loaded.
 """
 
 import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import warnings
 
 import numpy as np
 
-__all__ = ["SOURCE", "library_path", "load", "parse_file",
-           "parse_file_range"]
+__all__ = ["SOURCE", "ORDER_SOURCE", "library_path", "order_library_path",
+           "load", "load_order", "parse_file", "parse_file_range",
+           "permutation"]
 
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                      "libsvm_parser.cc")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCE = os.path.join(_CSRC, "libsvm_parser.cc")
+ORDER_SOURCE = os.path.join(_CSRC, "legacy_order.cc")
 _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
         __file__)))), "build", "armnet_tpu_torch")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
 
 _lib = None
+_order_lib = None
+_order_lock = threading.Lock()       # the main thread and the order worker
 _P64 = ctypes.POINTER(ctypes.c_int64)
 _PI32 = ctypes.POINTER(ctypes.c_int32)
 _PF32 = ctypes.POINTER(ctypes.c_float)
@@ -48,36 +63,49 @@ _SIGNATURES = {
 }
 
 
-def library_path():
-    """Where the library of the current source and flags lives."""
+def _library_path(source):
     h = hashlib.sha1(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
-    return os.path.join(_BUILD_DIR, f"libsvm_parser.{h.hexdigest()[:12]}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(_BUILD_DIR, f"{stem}.{h.hexdigest()[:12]}.so")
 
 
-def _build(out):
+def library_path():
+    """Where the parser library of the current source and flags lives."""
+    return _library_path(SOURCE)
+
+
+def order_library_path():
+    """Where the order library of the current source and flags lives."""
+    return _library_path(ORDER_SOURCE)
+
+
+def _build(out, source):
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     try:
-        subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE], check=True,
+        subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, source], check=True,
                        capture_output=True, text=True, timeout=300)
         os.replace(tmp, out)
     except (subprocess.CalledProcessError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"g++ failed for {SOURCE}:\n{e.stderr}") from e
+        raise RuntimeError(f"g++ failed for {source}:\n{e.stderr}") from e
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
 
 
+def _open(path, source):
+    if not os.path.exists(path):
+        _build(path, source)
+    return ctypes.CDLL(path)
+
+
 def load():
-    """The library, built first where its file is missing."""
+    """The parser library, built first where its file is missing."""
     global _lib
     if _lib is None:
-        path = library_path()
-        if not os.path.exists(path):
-            _build(path)
-        lib = ctypes.CDLL(path)
+        lib = _open(library_path(), SOURCE)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -118,3 +146,30 @@ def parse_file_range(path, nfield, lo, hi):
                   lambda: lib.libsvm_count_rows_range(b, lo, hi),
                   lambda *out: lib.libsvm_parse_range(b, nfield, lo, hi,
                                                       *out))
+
+
+def load_order():
+    """The order library, built first where its file is missing."""
+    global _order_lib
+    with _order_lock:
+        if _order_lib is None:
+            lib = _open(order_library_path(), ORDER_SOURCE)
+            lib.legacy_permutation.argtypes = [ctypes.c_uint32, ctypes.c_int64,
+                                               _P64]
+            lib.legacy_permutation.restype = ctypes.c_int64
+            _order_lib = lib
+    return _order_lib
+
+
+def permutation(seed, n, out):
+    """Fill `out` (int64 [n], C-contiguous) with numpy's legacy
+    RandomState(seed).permutation(n); seed in [0, 2^32 - 1], n at most
+    2^32. The GIL is released while it runs."""
+    if not (out.dtype == np.int64 and out.shape == (n,)
+            and out.flags.c_contiguous and out.flags.writeable):
+        raise ValueError(f"out must be a writable contiguous int64 [{n}]")
+    if not 0 <= seed <= 0xFFFFFFFF:
+        raise ValueError(f"seed {seed} is not in [0, 2^32 - 1]")
+    if load_order().legacy_permutation(seed, n, out.ctypes.data_as(_P64)):
+        raise RuntimeError(f"no native permutation of {n} rows")
+    return out

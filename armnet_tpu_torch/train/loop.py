@@ -280,4 +280,10 @@ class Trainer:
                 break
 
         self.logger.info(f"Total running time: {time_since(since=start)}")
+        train = self.loaders[0]
+        self.logger.info(
+            f"feed: rows resident on the device (train, val, test) "
+            f"{[loader.resident for loader in self.loaders]}; train epoch "
+            f"orders drawn ahead {train.orders_ahead}, at the epoch's start "
+            f"{train.orders_at_start}")
         return best_valid, best_test

@@ -108,10 +108,11 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               (the kernel's worst error within 1.2x the newton build's at
               each alpha), scaling --max_devices 1 (one row) and one A/A
               pair of the bench through paired_ab
-     feeds    warm train rows/s of cr_armnet1h with the batches fed
-              through the lookahead, through it with the prefetch thread
-              (ARMNET_PREFETCH_THREAD=1) and copied at the head of each
-              step (the loop before the lookahead), in turns
+     feeds    warm train rows/s of cr_armnet1h with the batches gathered
+              from rows resident on the card, fed through the streaming
+              lookahead (RESIDENT_SHARE 0), through it with the prefetch
+              thread (ARMNET_PREFETCH_THREAD=1) and copied at the head of
+              each step (the loop before the lookahead), in turns
      distributed  torchrun (one process, NCCL) of the training CLI at
               cr_armnet1h width with --mesh data:1,model:1
               --shard_embedding against the same run in this process:
@@ -202,6 +203,7 @@ from armnet_tpu_torch import predict
 from armnet_tpu_torch.benchmarks.timing import (
     launch_counts as read_counts, zero_launch_counts as zero_counts)
 from armnet_tpu_torch.bridge import from_jax_arrays
+from armnet_tpu_torch.data import libsvm
 from armnet_tpu_torch.data.libsvm import (BatchIterator, LibsvmDataset,
                                           make_dataloaders)
 from armnet_tpu_torch.data.uci import uci_loader
@@ -1376,19 +1378,20 @@ class HeadCopy:
                    for k, v in batch.items()}
 
 
-FEEDS = ("lookahead", "thread", "head_copy")
+FEEDS = ("resident", "lookahead", "thread", "head_copy")
 
 
 def warm_train_rate(cfg, data, epochs=4, dataset="criteo", nfield=39,
                     feed="lookahead"):
     """Host-clock rows/s of whole train epochs (run_epoch over the train
     split of {data}/{dataset}, TRAIN_BATCHES batches for the synthetic
-    Criteo one: host batch assembly, copies, steps) on a fresh trainer of
-    `cfg`, the first epoch being the warm-up. The batches reach the card
-    through the iterator's lookahead (`feed` 'lookahead'), through it with
-    the prefetch thread on ('thread': ARMNET_PREFETCH_THREAD=1), or copied
-    at the head of each step ('head_copy'). Returns (warm rates, warm ms
-    per step, the trainer)."""
+    Criteo one: batch assembly, copies, steps) on a fresh trainer of
+    `cfg`, the first epoch being the warm-up. The batches are gathered on
+    the card from its resident rows (`feed` 'resident'), reach it through
+    the iterator's streaming lookahead (RESIDENT_SHARE 0: 'lookahead'),
+    through it with the prefetch thread on ('thread':
+    ARMNET_PREFETCH_THREAD=1), or are copied at the head of each step
+    ('head_copy'). Returns (warm rates, warm ms per step, the trainer)."""
     loaders = make_dataloaders(dataset, data, nfield, cfg.batch_size,
                                seed=SEED,
                                device=None if feed == "head_copy" else "cuda")
@@ -1399,6 +1402,11 @@ def warm_train_rate(cfg, data, epochs=4, dataset="criteo", nfield=39,
     secs = []
     prev = os.environ.get("ARMNET_PREFETCH_THREAD")
     os.environ["ARMNET_PREFETCH_THREAD"] = "1" if feed == "thread" else "0"
+    # the rows stream where the card holds no share of them (the choice
+    # is made at the first iteration)
+    share = libsvm.RESIDENT_SHARE
+    if feed != "resident":
+        libsvm.RESIDENT_SHARE = 0.0
     try:
         for ep in range(epochs):
             torch.cuda.synchronize()
@@ -1409,6 +1417,7 @@ def warm_train_rate(cfg, data, epochs=4, dataset="criteo", nfield=39,
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
     finally:
+        libsvm.RESIDENT_SHARE = share
         if prev is None:
             del os.environ["ARMNET_PREFETCH_THREAD"]
         else:
@@ -2736,10 +2745,10 @@ def phase_benchmarks():
 
 def phase_feeds(data):
     """Warm train rows/s of cr_armnet1h (ensemble off, auto) on the
-    synthetic Criteo split, each batch fed through the iterator's
-    lookahead, through it with the prefetch thread, and copied at the head
-    of its step (the loop before the lookahead), in the order A B C C B A
-    in this call;
+    synthetic Criteo split, each batch gathered from the card's resident
+    rows, fed through the iterator's streaming lookahead, through it with
+    the prefetch thread, and copied at the head of its step (the loop
+    before the lookahead), in the order A B C D D C B A in this call;
     and the lookahead trainer's train-step profile (host share)."""
     cfg = criteo_config(False)
     rates = {feed: [] for feed in FEEDS}
@@ -2751,6 +2760,7 @@ def phase_feeds(data):
     med = {feed: float(np.median(r)) for feed, r in rates.items()}
     log("feeds", width="cr_armnet1h", warm_rows_per_s=rates,
         median_rows_per_s=med,
+        resident_over_lookahead=med["resident"] / med["lookahead"],
         lookahead_over_head_copy=med["lookahead"] / med["head_copy"],
         thread_over_lookahead=med["thread"] / med["lookahead"])
 

@@ -928,17 +928,23 @@ def _libsvm_rows(path, n, nfield, nfeat, seed):
     return path
 
 
-@pytest.mark.parametrize("thread", ["0", "1"])
+@pytest.mark.parametrize("thread,resident", [("0", False), ("1", False),
+                                             ("0", True)])
 def test_lookahead_iterator_on_the_card_yields_the_cpu_batches(
-        cuda, tmp_path, monkeypatch, thread):
-    """The lookahead (pinned memory, a copy stream, the consumer waiting
-    on the copy's event), with and without the prefetch thread, hands
-    over on the card the batches the CPU iterator yields, across epochs,
-    the padded last batch and an early break included."""
+        cuda, tmp_path, monkeypatch, thread, resident):
+    """The card's two feeds hand over the batches the CPU iterator yields,
+    across epochs, the padded last batch and an early break included: the
+    streaming lookahead (RESIDENT_SHARE 0: pinned memory, a copy stream,
+    the consumer waiting on the copy's event), with and without the
+    prefetch thread, and the resident rows gathered on the card (the
+    epoch's order copied on the copy stream, its tail filled there)."""
+    from armnet_tpu_torch.data import libsvm
     from armnet_tpu_torch.data.libsvm import BatchIterator, LibsvmDataset
 
     monkeypatch.setenv("ARMNET_PREFETCH_THREAD", thread)
     monkeypatch.setenv("ARMNET_CACHE_DIR", str(tmp_path / "cache"))
+    if not resident:
+        monkeypatch.setattr(libsvm, "RESIDENT_SHARE", 0.0)
     ds = LibsvmDataset(_libsvm_rows(str(tmp_path / "t.libsvm"), 1000, 39,
                                     2000, 0), 39)
     cpu = BatchIterator(ds, 96, True, seed=3)
@@ -953,6 +959,8 @@ def test_lookahead_iterator_on_the_card_yields_the_cpu_batches(
     for i, _ in enumerate(dev):
         if i == 2:
             break
+    assert dev.resident is resident
+    assert (dev.orders_ahead, dev.orders_at_start) == (2, 1)
     assert dev._inflight == []
     if thread == "1":
         assert not dev.thread.is_alive()

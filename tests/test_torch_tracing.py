@@ -1,10 +1,11 @@
 """The port's spans (armnet_tpu_torch/utils/tracing.py): the no-op with no
 recorder, nesting and ids under one, and the spans of the feed
-(BatchIterator) and of the train step, which change no batch, meter or
-parameter. One test needs the card (marked `cuda`; on a GPU machine:
-`python -m pytest --noconftest -q tests/test_torch_tracing.py`): the
-feed's pin and copy spans, and the kernels a step launches, the same with
-the recorder and without.
+(BatchIterator, on its streaming and resident paths) and of the train
+step, which change no batch, meter or parameter. One test needs the card
+(marked `cuda`; on a GPU machine: `python -m pytest --noconftest -q
+tests/test_torch_tracing.py`): the feed's take spans, or its pin and copy
+spans, and the kernels a step launches, the same with the recorder and
+without.
 """
 
 import contextlib
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from armnet_tpu_torch.data import libsvm
 from armnet_tpu_torch.data.libsvm import BatchIterator
 from armnet_tpu_torch.models import create_model
 from armnet_tpu_torch.models.config import ModelConfig
@@ -91,31 +93,58 @@ def test_spans_nest_by_thread_and_carry_their_ids():
     assert outer.start_ns <= inner.start_ns <= inner.end_ns <= outer.end_ns
 
 
-@pytest.mark.parametrize("threaded", [False, True])
-def test_feed_spans_leave_the_batches_bit_identical(monkeypatch, threaded):
-    """Two shuffled epochs of 5 batches (the last padded) with and without
-    the recorder: the same batches; order once an epoch, gather and free
-    once a batch, with its epoch and batch, on the worker thread where
-    there is one; release once an epoch."""
-    if threaded:
-        monkeypatch.setenv("ARMNET_PREFETCH_THREAD", "1")
-    rows = Rows(70)
-    plain = _epochs(BatchIterator(rows, BSZ, shuffle=True, seed=5), 2)
+def _traced_epochs(rows, n, **kw):
+    """n epochs of a shuffled iterator under the recorder, its last
+    ahead-drawn order awaited inside the block; (batches, spans by name)."""
     with recording() as rec:
-        traced = _epochs(BatchIterator(rows, BSZ, shuffle=True, seed=5), 2)
+        it = BatchIterator(rows, BSZ, shuffle=True, seed=5, **kw)
+        batches = _epochs(it, n)
+        it._ahead.thread.join(timeout=10)
+        assert not it._ahead.thread.is_alive()
+    by = {}
+    for s in rec.spans:
+        by.setdefault(s.name, []).append(s)
+    return it, batches, by
+
+
+def _assert_same(plain, traced):
     for pe, te in zip(plain, traced):
         assert len(pe) == len(te) == 5
         for p, t in zip(pe, te):
             assert p.keys() == t.keys()
             for k in p:
                 assert torch.equal(p[k], t[k])
-    by = {}
-    for s in rec.spans:
-        by.setdefault(s.name, []).append(s)
-    assert set(by) == {"armnet.feed.order", "armnet.feed.gather",
-                       "armnet.feed.free", "armnet.feed.release"}
+
+
+def _assert_order_spans(by):
+    """The epoch's wait for its order once an epoch; the next epoch's draw
+    once an epoch, on the order worker."""
     assert [s.ids for s in by["armnet.feed.order"]] == [{"epoch": 0},
                                                         {"epoch": 1}]
+    assert [s.ids for s in by["armnet.feed.order_draw"]] == [{"epoch": 1},
+                                                             {"epoch": 2}]
+    assert {s.thread for s in by["armnet.feed.order_draw"]} == {
+        "armnet-order"}
+
+
+@pytest.mark.parametrize("threaded", [False, True])
+def test_feed_spans_leave_the_batches_bit_identical(monkeypatch, threaded):
+    """Two shuffled epochs of 5 batches (the last padded) with and without
+    the recorder: the same batches; order once an epoch, gather and free
+    once a batch, with its epoch and batch, on the worker thread where
+    there is one; release once an epoch; the next epoch's order drawn on
+    the order worker."""
+    if threaded:
+        monkeypatch.setenv("ARMNET_PREFETCH_THREAD", "1")
+    rows = Rows(70)
+    plain = _epochs(BatchIterator(rows, BSZ, shuffle=True, seed=5), 2)
+    it, traced, by = _traced_epochs(rows, 2)
+    _assert_same(plain, traced)
+    assert not it.resident
+    assert set(by) == {"armnet.feed.order", "armnet.feed.order_draw",
+                       "armnet.feed.gather", "armnet.feed.free",
+                       "armnet.feed.release"}
+    _assert_order_spans(by)
     assert [s.ids for s in by["armnet.feed.release"]] == [{"epoch": 0},
                                                           {"epoch": 1}]
     for name in ("armnet.feed.gather", "armnet.feed.free"):
@@ -123,6 +152,25 @@ def test_feed_spans_leave_the_batches_bit_identical(monkeypatch, threaded):
             {"epoch": e, "batch": b} for e in range(2) for b in range(5)]
     thread = "armnet-prefetch" if threaded else "MainThread"
     assert {s.thread for s in by["armnet.feed.gather"]} == {thread}
+
+
+def test_resident_feed_spans_leave_the_batches_bit_identical(monkeypatch):
+    """The resident path, driven on CPU tensors: the streaming path's
+    batches; upload once an iterator, take once a batch with its epoch and
+    batch, the order spans as streaming; no host gather, pin, copy or
+    release."""
+    rows = Rows(70)
+    plain = _epochs(BatchIterator(rows, BSZ, shuffle=True, seed=5), 2)
+    monkeypatch.setattr(libsvm, "resident_fits", lambda ds, device: True)
+    it, traced, by = _traced_epochs(rows, 2)
+    _assert_same(plain, traced)
+    assert it.resident
+    assert set(by) == {"armnet.feed.upload", "armnet.feed.order",
+                       "armnet.feed.order_draw", "armnet.feed.take"}
+    assert [s.ids for s in by["armnet.feed.upload"]] == [{}]
+    _assert_order_spans(by)
+    assert [s.ids for s in by["armnet.feed.take"]] == [
+        {"epoch": e, "batch": b} for e in range(2) for b in range(5)]
 
 
 def _train(steps, batches):
@@ -178,11 +226,16 @@ def _kernels(prof):
 
 
 @pytest.mark.cuda
-def test_recorder_adds_no_kernel_on_the_card(cuda):
-    """The feed's lookahead on the card records pin and copy for every
-    batch, and 4 profiled train steps launch the same kernels with the
-    recorder as without it."""
+@pytest.mark.parametrize("resident", [False, True])
+def test_recorder_adds_no_kernel_on_the_card(cuda, monkeypatch, resident):
+    """On the card, the feed records a take for every batch where its rows
+    are resident (uploaded once, in the warm epoch), and pin and copy for
+    every batch where they stream (RESIDENT_SHARE 0); 4 profiled train
+    steps launch the same kernels with the recorder as without it."""
     from torch.profiler import ProfilerActivity, profile
+
+    if not resident:
+        monkeypatch.setattr(libsvm, "RESIDENT_SHARE", 0.0)
 
     cfg = ModelConfig(model="armnet_1h", nfeat=NFEAT, nfield=NFIELD, nemb=4,
                       h=8, mlp_nlayer=1, mlp_nhid=8, alpha=2.0)
@@ -204,8 +257,16 @@ def test_recorder_adds_no_kernel_on_the_card(cuda):
         if traced:
             names = _names(rec)
     assert counts[0] == counts[1] == counts[2] > 0
-    for name in ("armnet.feed.gather", "armnet.feed.pin",
-                 "armnet.feed.copy", "armnet.feed.free"):
+    assert it.resident is resident
+    fed = (["armnet.feed.take"] if resident else
+           ["armnet.feed.gather", "armnet.feed.pin", "armnet.feed.copy",
+            "armnet.feed.free"])
+    for name in fed:
         assert names.count(name) == 4, name
+    for name in ("armnet.feed.take", "armnet.feed.gather", "armnet.feed.pin",
+                 "armnet.feed.copy", "armnet.feed.free",
+                 "armnet.feed.upload"):
+        if name not in fed:
+            assert name not in names, name
     for name in STEP_SPANS:
         assert names.count(name) == 4, name

@@ -471,9 +471,10 @@ def test_resume_continues_the_loss_curve(tmp_path, quiet_logger):
 
 def test_cli_trains_on_the_cpu_and_predict_scores_it(tmp_path, capsys):
     """train.cli.main for two epochs on a tiny split: metrics.jsonl rows,
-    best/last training checkpoints that predict scores, and a --resume
-    with a --profile_dir trace that names the step's and the feed's
-    spans."""
+    the feed's line in the log (CPU rows stream; the second epoch took the
+    order drawn ahead during the first), best/last training checkpoints
+    that predict scores, and a --resume with a --profile_dir trace that
+    names the step's and the feed's spans."""
     write_split(str(tmp_path / "data" / "tiny"), seed=4)
     common = ["--model", "armnet_1h", "--nfeat", str(NFEAT), "--nfield",
               str(NFIELD), "--nemb", str(NEMB), "--h", "16", "--mlp_nhid",
@@ -489,6 +490,10 @@ def test_cli_trains_on_the_cpu_and_predict_scores_it(tmp_path, capsys):
     assert [r["epoch"] for r in rows] == [0, 1]
     assert set(rows[0]) == {"epoch", "seed", "train", "valid", "test",
                             "metric", "best_valid", "is_best", "time_s"}
+    log = (tmp_path / "log" / "t_3" / "stdout.log").read_text()
+    assert ("feed: rows resident on the device (train, val, test) [False, "
+            "False, False]; train epoch orders drawn ahead 1, at the "
+            "epoch's start 1") in log
     ck = tmp_path / "ckpt" / "t_3"
     assert (ck / "last" / "optim.pt").exists()
     assert (ck / "best" / "model.pt").exists()
