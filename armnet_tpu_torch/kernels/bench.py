@@ -16,8 +16,8 @@ registers and spills that ptxas reports.
 
     python -m armnet_tpu_torch.kernels.bench [--out FILE] [SECTION ...]
 
-SECTION is entmax, entmax_bwd, entmax_routes, table_grad or arm (all if
-none is named).
+SECTION is entmax, entmax_bwd, entmax_routes, table_grad, arm or cin
+(all if none is named).
 
 `time_ms` is the device's time of one call: the median of 20 CUDA-event
 timings after 3 warm calls, with the device held busy while the host
@@ -37,11 +37,14 @@ import subprocess
 import numpy as np
 import torch
 
-from armnet_tpu_torch.kernels import arm_cuda, build, entmax_cuda, scatter_cuda
-from armnet_tpu_torch.kernels.bounds import (bound, entmax_bound_ms,
+from armnet_tpu_torch.kernels import (arm_cuda, build, cin_cuda, entmax_cuda,
+                                      scatter_cuda)
+from armnet_tpu_torch.kernels.bounds import (bound, cin_bounds,
+                                             entmax_bound_ms,
                                              entmax_bwd_ops_per_element,
                                              fused_arm_bounds)
 from armnet_tpu_torch.kernels.entmax_common import solver_mode
+from armnet_tpu_torch.ops import interaction
 
 CRITEO_SHAPE = (4096, 39, 128)
 FRAPPE_SHAPE = (4096, 10, 128)
@@ -75,6 +78,13 @@ DIABETES_ARM = (1024, 43, 10, 10, 128)
 # 16-wide register sums
 FRAPPE_NEMB100_ARM = (4096, 10, 100, 100, 10)
 CRITEO_NFEAT = 2_100_000
+# (B, E, F, C, N) of the CIN's layers at the xdfm_criteo step (65,536
+# rows, 39 fields, E 10, 200 maps): layer 0 reads the fields, 1 and 2 the
+# maps; the plain version is timed on PLAIN_CIN_ROWS of them (its outer
+# product of the whole step would not fit), the blocked route
+# (ops/interaction's, as the program runs it) on all
+CIN_LAYERS = ((65536, 10, 39, 39, 200), (65536, 10, 39, 200, 200))
+PLAIN_CIN_ROWS = 8192
 ALPHAS = (1.5, 1.7, 2.0, 2.5)
 SEED = 2025
 # Zipf exponents of the skewed table-gradient cases: 0.99 is YCSB's
@@ -125,8 +135,8 @@ def host_incl_ms(fn, reps=20, warmup=3):
 
 def _pretty(mangled):
     """'entmax_fwd_kernel<40,0>' or 'radix_count_kernel<int>' from an
-    Itanium-mangled kernel name with integer or int-type template
-    arguments."""
+    Itanium-mangled kernel name with integer, bool (as 0 or 1) or int-type
+    template arguments."""
     m = re.match(r"_ZN?", mangled)
     if not m:
         return mangled
@@ -136,12 +146,12 @@ def _pretty(mangled):
         while mangled[j].isdigit():
             j += 1
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
-    args = re.match(r"I((?:Li-?\d+E|[ilx])+)E", mangled[i:])
+    args = re.match(r"I((?:L[ib]-?\d+E|[ilx])+)E", mangled[i:])
     if not args:
         return name
     types = {"i": "int", "l": "long", "x": "long long"}
     return name + "<" + ",".join(
-        num or types[t] for num, t in re.findall(r"Li(-?\d+)E|([ilx])",
+        num or types[t] for num, t in re.findall(r"L[ib](-?\d+)E|([ilx])",
                                                  args.group(1))) + ">"
 
 
@@ -594,13 +604,83 @@ def bench_arm(composed):
                        **rec}
 
 
+def cin_inputs(g, shape):
+    """Seeded x0t [B, E, F], xkt [B, E, C], w [F*C, N] and dout [B, E, N]
+    of one CIN layer, on the card (x_k as a ReLU output: half zeros)."""
+    b, e, f, c, n = shape
+    x0 = torch.randn((b, e, f), generator=g, device="cuda") * 0.5
+    xk = torch.relu(torch.randn((b, e, c), generator=g, device="cuda"))
+    w = torch.rand((f * c, n), generator=g, device="cuda").sub_(0.5).mul_(
+        2 * (f * c) ** -0.5)
+    dout = torch.randn((b, e, n), generator=g, device="cuda") * 1e-3
+    return x0, xk, w, dout
+
+
+def _blocked_route(x0, xk, w, dout):
+    """(rows a block, forward, backward) of ops/interaction's blocked route
+    on x0t [B, E, F], xkt [B, E, C] and w: the forward one apply of
+    _CINBlocked, the backward its backward alone, over a graph kept for
+    the repeats."""
+    rows = interaction._block_rows(x0.transpose(1, 2), xk.transpose(1, 2))
+    leaves = [t.detach().requires_grad_() for t in (x0, xk, w)]
+    out = interaction._CINBlocked.apply(*leaves, rows, None)
+    return (rows,
+            lambda: interaction._CINBlocked.apply(x0, xk, w, rows, None),
+            lambda: torch.autograd.grad(out, leaves, dout,
+                                        retain_graph=True))
+
+
+def bench_cin():
+    """K8 at CIN_LAYERS: the fused forward and backward (device and
+    host-inclusive ms, launches a call, achieved TFLOP/s), the bound, the
+    plain version on PLAIN_CIN_ROWS rows and the blocked route on all,
+    with TF32 off; the kernels' registers and spills first."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    yield {"cin_ptxas": ptxas_report(build.build_log("cin"))}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for shape in CIN_LAYERS:
+        x0, xk, w, dout = cin_inputs(g, shape)
+        out = cin_cuda.cin_fwd(x0, xk, w)
+        rows, blocked_fwd, blocked_bwd = _blocked_route(x0, xk, w, dout)
+        sub = (x0[:PLAIN_CIN_ROWS], xk[:PLAIN_CIN_ROWS])
+        calls = {
+            "fwd": (lambda: cin_cuda.cin_fwd(x0, xk, w),
+                    lambda: cin_cuda.cin_fwd_plain(*sub, w), blocked_fwd),
+            "bwd": (lambda: cin_cuda.cin_bwd(x0, xk, w, out, dout),
+                    lambda: cin_cuda.cin_bwd_plain(
+                        *sub, w, out[:PLAIN_CIN_ROWS],
+                        dout[:PLAIN_CIN_ROWS]), blocked_bwd)}
+        bounds = cin_bounds(shape)
+        for kind, (kernel, plain, blocked) in calls.items():
+            before = (cin_cuda.LAUNCHES, cin_cuda.BWD_LAUNCHES)
+            kernel()
+            launches = (cin_cuda.LAUNCHES + cin_cuda.BWD_LAUNCHES
+                        - sum(before))
+            dev = time_ms(kernel, reps=5, warmup=1)
+            bms, by, nbytes, nops = bounds[kind]
+            yield {f"cin_{kind}": dict(zip("BEFCN", shape)),
+                   "time_ms": dev,
+                   "host_incl_ms": host_incl_ms(kernel, reps=5, warmup=1),
+                   "launches": launches, "bound_ms": bms, "bound_by": by,
+                   "tflops": 2 * nops / dev / 1e9,
+                   "roofline_pct": 100 * bms / dev,
+                   "plain_ms": time_ms(plain, reps=3, warmup=1),
+                   "plain_rows": PLAIN_CIN_ROWS,
+                   "blocked_ms": time_ms(blocked, reps=3, warmup=1),
+                   "block_rows": rows,
+                   "kernels_ms": kernel_device_ms(kernel, reps=2)}
+        del x0, xk, w, dout, out, calls, blocked_fwd, blocked_bwd
+        torch.cuda.empty_cache()
+
+
 def main(composed_arm, argv=None):
     """Runs the named sections; `composed_arm` is the interaction that the
     arm section times K5/K6 beside."""
     sections = {"entmax": bench_entmax, "entmax_bwd": bench_entmax_bwd,
                 "entmax_routes": bench_entmax_routes,
                 "table_grad": bench_table_grad,
-                "arm": lambda: bench_arm(composed_arm)}
+                "arm": lambda: bench_arm(composed_arm), "cin": bench_cin}
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out")
     p.add_argument("sections", nargs="*", choices=list(sections),

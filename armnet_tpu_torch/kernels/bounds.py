@@ -88,3 +88,23 @@ def fused_arm_bounds(shape, alpha):
             ("bwd", 4 * (2 * bfe + boe) + 2 * weights, bwd_ops)):
         out[name] = (*bound(nbytes, nops), nbytes, nops)
     return out
+
+
+def cin_bounds(shape):
+    """{"fwd"|"bwd": (bound ms, bound_by, bytes, f32 instruction slots)} of
+    one CIN layer (K8) at (B, E, F, C, N): a multiply-add of the products
+    as one slot, forward B E F C N, backward twice that (the filter's
+    gradient and dOut W_f^T); bytes of x0, xk and the output (forward), and
+    of x0, xk, the output and its gradient read and the inputs' gradients
+    written (backward), with the filter read (and its gradient written)."""
+    b, e, f, c, n = shape
+    rows = b * e
+    fmas = rows * f * c * n
+    weights = 4 * f * c * n
+    out = {}
+    for name, nbytes, nops in (
+            ("fwd", 4 * rows * (f + c + n) + weights, fmas),
+            ("bwd", 4 * rows * (2 * (f + c) + 2 * n) + 2 * weights,
+             2 * fmas)):
+        out[name] = (*bound(nbytes, nops), nbytes, nops)
+    return out

@@ -1,9 +1,11 @@
 """CIN and xDeepFM (port of armnet_tpu/models/xdfm.py): the compressed
 interaction network, per layer an outer product over fields compressed by
-a 1x1 convolution (filter_k [F * C_prev, nfilter], as a matmul) and ReLU,
-each layer's output sum-pooled over E and the pools projected by the
-bias-free `affine`; plus the first-order term (`cin`), and the MLP over
-the flattened embeddings (`xdfm`)."""
+a 1x1 convolution (filter_k [F * C_prev, nfilter], as a matmul) and ReLU
+(ops/interaction's compressed_interaction_step: the fused CIN kernels on
+the card in full float32, else the blocked plain route), each layer's
+output sum-pooled over E and the pools projected by the bias-free
+`affine`; plus the first-order term (`cin`), and the MLP over the
+flattened embeddings (`xdfm`)."""
 
 import torch
 from torch import nn
@@ -38,7 +40,7 @@ class CompressedInteraction(nn.Module):
         pooled, xk = [], x
         for k in range(self.nlayers):
             xk = compressed_interaction_step(x, xk,
-                                             getattr(self, f"filter_{k}"))
+                                             getattr(self, f"filter_{k}"), k)
             pooled.append(xk.sum(-1))                      # [B, nfilter]
         return self.affine(torch.cat(pooled, dim=1)).squeeze(-1)
 

@@ -3,8 +3,26 @@ interactions of armnet_tpu/ops/interaction.py, and of
 armnet_tpu/kernels/arm_pallas.py).
 
 Zoo interactions, plain PyTorch as in the JAX package (no Pallas kernel
-there): `anova_kernel` (HOFM), `cross_layer` (DCN),
-`compressed_interaction_step` (CIN / xDeepFM).
+there): `anova_kernel` (HOFM), `cross_layer` (DCN); and
+`compressed_interaction_step` (CIN / xDeepFM), which takes one of two
+routes by what the call can observe:
+
+  fused    CUDA, float32 activations and filter, full float32 GEMMs
+           (matmul precision 'highest', no TF32): the kernel pair of
+           kernels/cin_cuda.py (csrc/cin.cu), which forms the outer product
+           x0 * xk tile by tile on chip, and recomputes it in the backward
+  blocked  everywhere else (the CPU, the TF32 and bfloat16 paths): the
+           plain version over row blocks, each block's outer product
+           [rows * E, F * C] formed, multiplied and dropped, no block's
+           above CIN_BLOCK_BYTES; the backward recomputes it block by
+           block. It follows the activations' dtype and the matmul
+           precision.
+
+Neither keeps a whole outer product: at 65,536 rows, 39 fields and 200
+maps it is 20.4 GB a layer. Both run inside the spans armnet.cin.forward
+and armnet.cin.backward (the layer index as their id) and count their
+calls (armnet.cin.fused, armnet.cin.blocked) and the blocked route's
+blocks (armnet.cin.blocks) through utils/tracing.
 
 ARM-1h:
 
@@ -38,14 +56,19 @@ functions take the same arguments as their JAX counterparts.
 
 import torch
 
-from armnet_tpu_torch.kernels import arm_cuda
+from armnet_tpu_torch.kernels import arm_cuda, cin_cuda
 from armnet_tpu_torch.kernels.config import use_fused_arm
 from armnet_tpu_torch.ops.entmax import pick, sparse_normalizer
 from armnet_tpu_torch.ops.layers import promoted
+from armnet_tpu_torch.utils.tracing import count, span
 
 __all__ = ["arm1h_interaction", "arm1h_fused", "arm_exp_cross_fmajor",
            "mh_gate_proj", "arm_attention_multihead", "anova_kernel",
-           "cross_layer", "compressed_interaction_step"]
+           "cross_layer", "compressed_interaction_step", "cin_route",
+           "CIN_BLOCK_BYTES"]
+
+# the blocked route's budget for one block's outer product
+CIN_BLOCK_BYTES = 1 << 28
 
 
 def arm1h_interaction(emb, wk, query, values, alpha, n_iter=50,
@@ -105,13 +128,96 @@ def cross_layer(x0, x, w, b):
     return x0 * torch.matmul(*promoted(x, w)) + b + x
 
 
-def compressed_interaction_step(x0, xk, filt):
+def cin_route(x0, xk, filt):
+    """'fused' where the kernels apply (CUDA, float32 operands, full float32
+    GEMMs), else 'blocked'."""
+    if (x0.is_cuda and x0.dtype == xk.dtype == filt.dtype == torch.float32
+            and torch.get_float32_matmul_precision() == "highest"
+            and not torch.backends.cuda.matmul.allow_tf32):
+        return "fused"
+    return "blocked"
+
+
+def _block_rows(x0, xk):
+    """Rows a block of the blocked route takes: its outer product within
+    CIN_BLOCK_BYTES."""
+    f, e, c = x0.shape[1], x0.shape[2], xk.shape[1]
+    size = torch.promote_types(x0.dtype, xk.dtype).itemsize
+    return max(1, CIN_BLOCK_BYTES // (f * c * e * size))
+
+
+class _CINFused(torch.autograd.Function):
+    """The kernels on x0t [B, E, F], xkt [B, E, C] (made contiguous: a copy
+    of x0t, none of a previous layer's output) -> out [B, E, N]."""
+
+    @staticmethod
+    def forward(ctx, x0t, xkt, filt, layer):
+        with span("armnet.cin.forward", layer=layer):
+            x0t, xkt = x0t.contiguous(), xkt.contiguous()
+            filt = filt.contiguous()
+            out = cin_cuda.cin_fwd(x0t, xkt, filt)
+        ctx.save_for_backward(x0t, xkt, filt, out)
+        ctx.layer = layer
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x0t, xkt, filt, out = ctx.saved_tensors
+        with span("armnet.cin.backward", layer=ctx.layer):
+            grads = cin_cuda.cin_bwd(x0t, xkt, filt, out,
+                                     dout.float().contiguous())
+        return (*grads, None)
+
+
+class _CINBlocked(torch.autograd.Function):
+    """The plain version over blocks of `rows` rows of x0t [B, E, F] and
+    xkt [B, E, C] -> out [B, E, N]; the backward recomputes each block's
+    outer product and sums the filter's gradient block after block."""
+
+    @staticmethod
+    def forward(ctx, x0t, xkt, filt, rows, layer):
+        b = x0t.shape[0]
+        with span("armnet.cin.forward", layer=layer):
+            parts = [cin_cuda.cin_fwd_plain(x0t[s:s + rows], xkt[s:s + rows],
+                                            filt)
+                     for s in range(0, b, rows)]
+            out = parts[0] if len(parts) == 1 else torch.cat(parts)
+        count("armnet.cin.blocks", len(parts))
+        ctx.save_for_backward(x0t, xkt, filt, out)
+        ctx.rows, ctx.layer = rows, layer
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x0t, xkt, filt, out = ctx.saved_tensors
+        rows = ctx.rows
+        dx0, dxk, dw = [], [], None
+        with span("armnet.cin.backward", layer=ctx.layer):
+            for s in range(0, x0t.shape[0], rows):
+                d0, dk, dwb = cin_cuda.cin_bwd_plain(
+                    x0t[s:s + rows], xkt[s:s + rows], filt, out[s:s + rows],
+                    dout[s:s + rows])
+                dx0.append(d0)
+                dxk.append(dk)
+                dw = dwb if dw is None else dw + dwb
+        count("armnet.cin.blocks", len(dx0))
+        return torch.cat(dx0), torch.cat(dxk), dw, None, None
+
+
+def compressed_interaction_step(x0, xk, filt, layer=None):
     """One CIN layer: x0 [B, F, E], xk [B, C, E], filt [F*C, nfilter] ->
     relu of the 1x1 convolution over the F*C channels of the outer product
-    x0[:, f] * xk[:, c] -> [B, nfilter, E]."""
-    b, _, e = x0.shape
-    h = (x0[:, :, None, :] * xk[:, None, :, :]).reshape(b, -1, e)
-    return torch.relu(torch.matmul(*promoted(filt.t(), h)))
+    x0[:, f] * xk[:, c] -> [B, nfilter, E]: a view of a [B, E, nfilter]
+    tensor, which the next layer's xk passes to the kernels as it is.
+    `layer` is the spans' id."""
+    x0t, xkt = x0.transpose(1, 2), xk.transpose(1, 2)
+    route = cin_route(x0, xk, filt)
+    count(f"armnet.cin.{route}")
+    if route == "fused":
+        out = _CINFused.apply(x0t, xkt, filt, layer)
+    else:
+        out = _CINBlocked.apply(x0t, xkt, filt, _block_rows(x0, xk), layer)
+    return out.transpose(1, 2)
 
 
 class _ARM1hFused(torch.autograd.Function):

@@ -46,7 +46,7 @@ from armnet_tpu_torch.train.step import (create_train_state, init_meters,
                                          task_fns)
 from armnet_tpu_torch.utils.config import compute_dtype
 from armnet_tpu_torch.utils.logging import AverageMeter, time_since
-from armnet_tpu_torch.utils.tracing import recording
+from armnet_tpu_torch.utils.tracing import counts, recording
 
 __all__ = ["Trainer", "run_epoch"]
 
@@ -232,6 +232,7 @@ class Trainer:
     def fit(self, epochs, patience=1, eval_freq=10000, report_freq=30):
         best_valid, best_test, patience_cnt = 0.0, 0.0, 0
         start = time.time()
+        cin_before = counts("armnet.cin.")
         if self.metrics_path:
             open(self.metrics_path, "w").close()   # one fit = one file
 
@@ -286,4 +287,9 @@ class Trainer:
             f"{[loader.resident for loader in self.loaders]}; train epoch "
             f"orders drawn ahead {train.orders_ahead}, at the epoch's start "
             f"{train.orders_at_start}")
+        cin = {k: v - cin_before.get(k, 0)
+               for k, v in counts("armnet.cin.").items()}
+        if any(cin.values()):
+            self.logger.info(f"cin: calls by route and blocked-route blocks "
+                             f"{dict(sorted(cin.items()))}")
         return best_valid, best_test

@@ -1,5 +1,6 @@
 """Named spans at the port's layer boundaries: the feed (data/libsvm.py's
-BatchIterator) and the train step (train/step.py).
+BatchIterator), the train step (train/step.py) and the CIN layer
+(ops/interaction.py), and counters of what a layer chose.
 
     with span("armnet.step.forward", step=state.step):
         ...
@@ -19,22 +20,31 @@ to, so program spans and device operations share one timeline), the span
 enclosing it on the same thread, the thread's name, and its ids: the step
 index for the step's spans, the epoch and batch index for the feed's (a
 batch gathered inside the next() that returns the one before it is
-matched to its batch by them). Under an active torch.profiler a recorded
+matched to its batch by them), the layer index for the CIN's. Under an
+active torch.profiler a recorded
 span also enters torch.profiler.record_function(name), so a profile shows
 the same names. A span adds no host-device sync and no device operation.
 
 Whoever installs the recorder writes its spans out, after the block.
+
+count(name, n) adds n to a process-wide counter (a dict add: counters are
+always on, so a trainer can log them once a run) and, where a recorder is
+installed, to its own `counters`, which then hold what the block counted.
+counts(prefix) returns the process-wide counters whose names start with
+prefix.
 """
 
+import collections
 import contextlib
 import threading
 import time
 
 import torch
 
-__all__ = ["Span", "Recorder", "recording", "span"]
+__all__ = ["Span", "Recorder", "recording", "span", "count", "counts"]
 
 _RECORDER = None
+_COUNTS = collections.Counter()
 
 
 class _NoSpan:
@@ -55,7 +65,8 @@ _NO_SPAN = _NoSpan()
 class Span:
     """One recorded span: name, start_ns, end_ns (time.time_ns()), parent
     (the Span enclosing it on its thread, or None), thread (the thread's
-    name) and ids ({'step': ...} or {'epoch': ..., 'batch': ...})."""
+    name) and ids ({'step': ...}, {'epoch': ..., 'batch': ...} or
+    {'layer': ...})."""
 
     __slots__ = ("name", "start_ns", "end_ns", "parent", "thread", "ids",
                  "_recorder", "_annotation")
@@ -87,10 +98,12 @@ class Span:
 
 class Recorder:
     """The spans closed while the recorder was installed (`spans`, in the
-    order they closed), each thread's spans nested on a stack of its own."""
+    order they closed), each thread's spans nested on a stack of its own,
+    and what count() counted meanwhile (`counters`)."""
 
     def __init__(self):
         self.spans = []
+        self.counters = collections.Counter()
         self._local = threading.local()
 
     def _stack(self):
@@ -114,14 +127,28 @@ def recording():
         _RECORDER = None
 
 
-def span(name, step=None, epoch=None, batch=None):
+def span(name, step=None, epoch=None, batch=None, layer=None):
     """A context manager around one stretch of work named `name`: the
     shared no-op where no recorder is installed, else a Span that the
-    recorder keeps when it closes. `step`, `epoch` and `batch` are the
-    ids it carries (those given)."""
+    recorder keeps when it closes. `step`, `epoch`, `batch` and `layer`
+    are the ids it carries (those given)."""
     recorder = _RECORDER
     if recorder is None:
         return _NO_SPAN
     ids = {k: v for k, v in (("step", step), ("epoch", epoch),
-                             ("batch", batch)) if v is not None}
+                             ("batch", batch), ("layer", layer))
+           if v is not None}
     return Span(recorder, name, ids)
+
+
+def count(name, n=1):
+    """Add n to the counter `name` (and to the installed recorder's)."""
+    _COUNTS[name] += n
+    recorder = _RECORDER
+    if recorder is not None:
+        recorder.counters[name] += n
+
+
+def counts(prefix=""):
+    """{name: value} of the process-wide counters named prefix..."""
+    return {k: v for k, v in _COUNTS.items() if k.startswith(prefix)}

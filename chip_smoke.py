@@ -54,6 +54,14 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               frappe_armnet+ [4096, 10, 16], alpha 1.5, and ml_armnet+
               [4096, 3, 8], alpha 2.5, beside the bound and the plain
               versions, with each route and its blocks per SM
+     kernel_cin  the CIN layer's fused kernels (K8) at the xdfm_criteo
+              step's layers (65,536 rows, E 10, 39 fields, C 39 and 200,
+              200 maps), TF32 off: forward, dx0, dxk and dW against the
+              plain version (on 4,096 rows; dW summed over blocks of them)
+              within 2e-5 of the largest entry, the backward twice bitwise
+              equal, launches a call; device and host-inclusive ms beside
+              the bound, the plain version and the blocked route
+              (kernels/bench.py's cin section), registers and spills
      data_path  the libsvm parse routes on a seeded 100,000-row Criteo-
               geometry file: seconds of the native parser (built with g++
               from armnet_tpu_torch/data/csrc/), the vectorized numpy
@@ -145,8 +153,10 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               afm, nfm, dnn, wd, dfm, ipnn, kpnn, dcn, dcn+, cin, xdfm,
               gcn, gat) with the CLI defaults on data/frappe/, 2 epochs
               each (6-20 for the models with a first-order term): K7
-              launches only (twice a step where a FeaturesLinear sits
-              beside the table), valid and test AUC against the JAX
+              launches (twice a step where a FeaturesLinear sits beside
+              the table) and, for cin and xdfm, K8's (a forward a layer a
+              batch, its backward's launches a layer a step), no other;
+              valid and test AUC against the JAX
               package's over as many epochs, one step against the CPU
               (unpinned but for the channel-axis-1 BatchNorms and gcn's
               MLP BatchNorms), predict
@@ -154,9 +164,9 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               main table at least 1e-4 at every forward
      criteo_zoo  xdfm and dfm at Criteo geometry (nfeat 2.1M, 39 fields,
               batch 4096) on the synthetic split: launches (K7 twice a
-              step), falling losses, one step against the CPU, predict of
-              the serving file with GPU vs CPU logits, peak device memory
-              and warm train rows/s
+              step; xdfm's K8 a layer, CIN 3 x 128), falling losses, one
+              step against the CPU, predict of the serving file with GPU
+              vs CPU logits, peak device memory and warm train rows/s
      uci_train  the UCI multi-class path on a seeded ARFF at the UCI-121
               letter geometry (20,000 rows, 16 columns, 26 classes,
               conxuntos.dat 10,000 / 10,000): armnet at the CLI defaults
@@ -207,8 +217,8 @@ from armnet_tpu_torch.data import libsvm
 from armnet_tpu_torch.data.libsvm import (BatchIterator, LibsvmDataset,
                                           make_dataloaders)
 from armnet_tpu_torch.data.uci import uci_loader
-from armnet_tpu_torch.kernels import (arm_cuda, bench, build, entmax_cuda,
-                                      scatter_cuda)
+from armnet_tpu_torch.kernels import (arm_cuda, bench, build, cin_cuda,
+                                      entmax_cuda, scatter_cuda)
 from armnet_tpu_torch.kernels.bench import (CRITEO_ARM, DIABETES_ARM,
                                             FRAPPE_ARM, FRAPPE_NEMB100_ARM,
                                             arm_bwd_split, arm_inputs,
@@ -804,13 +814,14 @@ def arm_step_times(g, step, shape, alpha, ferrs, berrs):
     return stats
 
 
-def run_predict(ckpt, inp, out, expect_rows, kernel="entmax_fwd"):
+def run_predict(ckpt, inp, out, expect_rows, kernel="entmax_fwd",
+                cin_layers=0):
     """predict.main on the card with the kernel counts set to 0 just before
     and read just after; checks rows, finite scores and launches: `kernel`
     once per batch (entmax_fwd under auto, arm1h_fwd under pallas-fused,
-    which predict restores from the checkpoint's sidecar), no other; none
-    at all where `kernel` is None (a model without entmax, whose forward
-    launches none of the port's kernels)."""
+    which predict restores from the checkpoint's sidecar), and K8's
+    forward `cin_layers` times per batch (cin and xdfm), no other; none but
+    K8's where `kernel` is None (a model without entmax)."""
     zero_counts()
     with contextlib.redirect_stdout(io.StringIO()), timed("predict"):
         summary = predict.main(["--ckpt", ckpt, "--input", inp, "--output",
@@ -824,6 +835,7 @@ def run_predict(ckpt, inp, out, expect_rows, kernel="entmax_fwd"):
     want = dict.fromkeys(counts, 0)
     if kernel is not None:
         want[kernel] = summary["batches"]
+    want["cin_fwd"] = summary["batches"] * cin_layers
     check(counts == want, f"predict launched {counts} over "
                           f"{summary['batches']} batches, expected {want}")
     return summary, counts[kernel] if kernel is not None else 0
@@ -1119,7 +1131,9 @@ KERNEL_WRAPPERS = (
     (entmax_cuda, "entmax_bwd_kernel", "entmax_bwd_plain", "entmax_bwd"),
     (scatter_cuda, "table_grad", "table_grad_plain", "table_grad"),
     (arm_cuda, "arm1h_fwd_kernel", "arm1h_fwd_plain", "arm1h_fwd"),
-    (arm_cuda, "arm1h_bwd_kernel", "arm1h_bwd_plain", "arm1h_bwd"))
+    (arm_cuda, "arm1h_bwd_kernel", "arm1h_bwd_plain", "arm1h_bwd"),
+    (cin_cuda, "cin_fwd", "cin_fwd_plain", "cin_fwd"),
+    (cin_cuda, "cin_bwd", "cin_bwd_plain", "cin_bwd"))
 
 
 @contextlib.contextmanager
@@ -1464,7 +1478,7 @@ def phase_train(tmp, data, first):
                 "--ckpt_dir", os.path.join(tmp, "ckpt"), "--device", "cuda"])
         want = {"entmax_fwd": steps + evals, "entmax_bwd": steps,
                 "table_grad": steps * (2 if ensemble else 1),
-                "arm1h_fwd": 0, "arm1h_bwd": 0}
+                "arm1h_fwd": 0, "arm1h_bwd": 0, "cin_fwd": 0, "cin_bwd": 0}
         if fused:
             want.update(entmax_fwd=0, entmax_bwd=0, arm1h_fwd=steps + evals,
                         arm1h_bwd=steps)
@@ -1610,7 +1624,8 @@ def phase_diabetes_train(tmp):
                 exp, "--log_dir", os.path.join(tmp, "log"), "--ckpt_dir",
                 os.path.join(tmp, "ckpt"), "--device", "cuda"])
         want = {"entmax_fwd": steps + evals, "entmax_bwd": steps,
-                "table_grad": steps, "arm1h_fwd": 0, "arm1h_bwd": 0}
+                "table_grad": steps, "arm1h_fwd": 0, "arm1h_bwd": 0,
+                "cin_fwd": 0, "cin_bwd": 0}
         if kernels == "pallas-fused":
             want.update(entmax_fwd=0, entmax_bwd=0, arm1h_fwd=steps + evals,
                         arm1h_bwd=steps)
@@ -1744,6 +1759,94 @@ MULTIHEAD_STEPS = (("cr_armnet", CR_ARMNET_SHAPE, 2.0),
                    ("av_armnet+", AV_ARMNET_PLUS_SHAPE, 2.0),
                    ("frappe_armnet+", FRAPPE_ARMNET_PLUS_SHAPE, 1.5),
                    ("ml_armnet+", ML_ARMNET_PLUS_SHAPE, 2.5))
+
+
+# rows of the xdfm_criteo step that K8 is held to its plain version on (the
+# plain version's outer product of 4,096 rows is 0.25-1.3 GB a layer), and
+# the tolerance: float32 sums of the F * C products (of the rows too, in
+# dW) in another order, 2e-5 of the largest entry (tests/test_torch_cuda.py
+# holds the same against float64)
+CIN_CHECK_ROWS = 4096
+CIN_ATOL = 2e-5
+
+
+def phase_kernel_cin():
+    """K8 at the xdfm_criteo step's layers (bench.CIN_LAYERS: 65,536 rows,
+    E 10, 39 fields, C 39 and 200, 200 maps) in full float32 (TF32 off):
+    the forward on every row, its first CIN_CHECK_ROWS rows against the
+    plain version on those rows; the backward's dx0 and dxk there against
+    the plain version's, and dW against the plain version summed over
+    blocks of CIN_CHECK_ROWS rows (the ReLU mask from the kernel's output
+    on both sides); each within CIN_ATOL of its largest entry; the
+    backward twice, bitwise equal; one forward and cin_cuda.bwd_launches
+    launches a call. Then bench.bench_cin's device times beside the bound,
+    the plain version and the blocked route. The matmul settings are
+    restored after. Returns {(kind, C): record}."""
+    tf32, precision = (torch.backends.cuda.matmul.allow_tf32,
+                       torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rows, recs = CIN_CHECK_ROWS, {}
+    try:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+        for shape in bench.CIN_LAYERS:
+            b, e, f, c, n = shape
+            x0, xk, w, dout = bench.cin_inputs(g, shape)
+            zero_counts()
+            out = cin_cuda.cin_fwd(x0, xk, w)
+            grads = cin_cuda.cin_bwd(x0, xk, w, out, dout)
+            again = cin_cuda.cin_bwd(x0, xk, w, out, dout)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want_bwd = 2 * cin_cuda.bwd_launches(b * e, f, c, n)
+            check(counts == {**dict.fromkeys(counts, 0), "cin_fwd": 1,
+                             "cin_bwd": want_bwd},
+                  f"K8 at {shape} launched {counts}")
+            check(all(torch.equal(u, v) for u, v in zip(grads, again)),
+                  f"K8's backward at {shape}: two calls differ")
+            ref = cin_cuda.cin_fwd_plain(x0[:rows], xk[:rows], w)
+            dx0, dxk, dw = cin_cuda.cin_bwd_plain(
+                x0[:rows], xk[:rows], w, out[:rows], dout[:rows])
+            for s0 in range(rows, b, rows):
+                dw += cin_cuda.cin_bwd_plain(
+                    x0[s0:s0 + rows], xk[s0:s0 + rows], w,
+                    out[s0:s0 + rows], dout[s0:s0 + rows])[2]
+            errs = {}
+            for name, got, want in (("out", out[:rows], ref),
+                                    ("dx0", grads[0][:rows], dx0),
+                                    ("dxk", grads[1][:rows], dxk),
+                                    ("dw", grads[2], dw)):
+                errs[name] = float((got - want).abs().max()
+                                   / want.abs().max())
+            check(all(v <= CIN_ATOL for v in errs.values()),
+                  f"K8 at {shape} against its plain version: gaps over the "
+                  f"largest entry {errs} (limit {CIN_ATOL})")
+            check(bool((out == 0).any() and (out > 0).any()),
+                  f"K8 at {shape}: the ReLU cut no output or every one")
+            recs[("check", c)] = {"errs": errs, "launches": counts}
+            del x0, xk, w, dout, out, grads, again, ref, dx0, dxk, dw
+            torch.cuda.empty_cache()
+        for rec in bench.bench_cin():
+            kind = next((k for k in ("fwd", "bwd") if f"cin_{k}" in rec),
+                        None)
+            if kind is not None:
+                recs[(kind, rec[f"cin_{kind}"]["C"])] = rec
+            else:
+                recs["ptxas"] = rec["cin_ptxas"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_float32_matmul_precision(precision)
+    for kind in ("fwd", "bwd"):
+        for c in (39, 200):
+            r = recs[(kind, c)]
+            check(all(math.isfinite(r[k]) and r[k] > 0 for k in (
+                "time_ms", "plain_ms", "blocked_ms", "bound_ms")),
+                  f"K8 {kind} at C {c}: times {r}")
+            log("kernel_cin", kind=kind, C=c, **r,
+                max_rel_err=max(recs[("check", c)]["errs"].values()))
+    log("kernel_cin", ptxas=recs["ptxas"],
+        checks={c: recs[("check", c)] for c in (39, 200)})
+    return recs
 
 
 def phase_kernel_multihead():
@@ -1906,14 +2009,31 @@ def tables(model, ensemble=False):
     return (2 if model in TWO_TABLES else 1) + int(ensemble)
 
 
-def zoo_want(steps, evals, entmax, tables):
+def zoo_want(steps, evals, entmax, tables, cin=(0, 0)):
     """Launch counts of a run: K2 once per train step and eval batch and K4
     once per step where the model has entmax, K7 `tables` times per step,
-    never K5 or K6."""
+    K8's forward cin[0] times per step and eval batch and its backward
+    cin[1] times per step (cin_want), never K5 or K6."""
     return {"entmax_fwd": (steps + evals) * entmax,
             "entmax_bwd": steps * entmax,
             "table_grad": steps * tables,
-            "arm1h_fwd": 0, "arm1h_bwd": 0}
+            "arm1h_fwd": 0, "arm1h_bwd": 0,
+            "cin_fwd": (steps + evals) * cin[0], "cin_bwd": steps * cin[1]}
+
+
+def cin_want(cfg, rows):
+    """(K8 forward launches a batch, its backward launches a train step) of
+    cfg's model on batches of `rows` rows: for cin and xdfm one forward a
+    CIN layer and cin_cuda.bwd_launches of each layer's backward (the same
+    for a ragged last batch of 26 rows or more, whose dW rows are cut as
+    the whole batch's are); (0, 0) for every other model."""
+    if cfg.model not in ("cin", "xdfm"):
+        return 0, 0
+    c, bwd = cfg.nfield, 0
+    for _ in range(cfg.k):
+        bwd += cin_cuda.bwd_launches(rows * cfg.nemb, cfg.nfield, c, cfg.h)
+        c = cfg.h
+    return cfg.k, bwd
 
 
 GAP_KEYS = ("loss_rel_gap", "logits_max_abs_gap", "u_kappa", "grad_rtol",
@@ -2004,11 +2124,12 @@ FRAPPE_ZOO = {
 def phase_frappe_zoo(tmp):
     """Each FRAPPE_ZOO model with the CLI defaults on data/frappe/ for its
     epochs (train_run; the step against the CPU on the first CPU_ROWS
-    rows): launches (K7 once per table a step, tables; no entmax, K5 or
-    K6), valid and test AUC per epoch, the best valid AUC at least the
-    JAX package's over the same epochs (FRAPPE_ZOO) less 0.02; then
-    predict of the run's best checkpoint on the test file (no kernel
-    launch) with GPU vs CPU logits of its first batch. For AFN the main
+    rows): launches (K7 once per table a step, tables; K8's for cin and
+    xdfm, cin_want; no entmax, K5 or K6), valid and test AUC per epoch,
+    the best valid AUC at least the JAX package's over the same epochs
+    (FRAPPE_ZOO) less 0.02; then predict of the run's best checkpoint on
+    the test file (no kernel launch but K8's forward) with GPU vs CPU
+    logits of its first batch. For AFN the main
     table's minimum at every forward of the run, train and eval, at least
     1e-4 (the positivity transform at the head of each step and before
     each eval pass)."""
@@ -2036,12 +2157,12 @@ def phase_frappe_zoo(tmp):
 
         hook = torch.nn.modules.module.register_module_forward_pre_hook(
             record)
+        flags = ["--model", model, "--batch_size", "4096"]
+        cin = cin_want(flags_config(flags), 4096)
         try:
             counts, rows, gap, seconds, cfg = train_run(
-                tmp, f"frappe_{model}",
-                ["--model", model, "--batch_size", "4096"], data, "frappe",
-                cut, epochs, zoo_want(steps, evals, 0, tables(model)),
-                auc_floor)
+                tmp, f"frappe_{model}", flags, data, "frappe", cut, epochs,
+                zoo_want(steps, evals, 0, tables(model), cin), auc_floor)
         finally:
             hook.remove()
         least = (float(torch.stack([m.cpu() for m in mins]).min()) if mins
@@ -2054,7 +2175,7 @@ def phase_frappe_zoo(tmp):
         ckpt = os.path.join(tmp, "ckpt", f"frappe_{model}_{SEED}")
         with timed("frappe_zoo.predict"):
             scored, _ = run_predict(ckpt, inp, os.path.join(
-                tmp, f"frappe_{model}.scores"), 14430, None)
+                tmp, f"frappe_{model}.scores"), 14430, None, cin[0])
             err = first_batch_logit_err(ckpt, cfg, inp)
         log("frappe_zoo", model=model, steps=steps, eval_batches=evals,
             launches=counts, per_step={k: counts[k] / steps for k in counts},
@@ -2079,9 +2200,10 @@ def phase_criteo_zoo(tmp, data, first, inp):
     the other widths at the CLI defaults: nemb 10, CIN 3 x 128, MLP
     2 x 256) on the synthetic Criteo split: cli.main for 2 epochs of
     TRAIN_BATCHES batches (train_run: K7 twice a step, the table's and
-    FeaturesLinear's E = 1 into 2.1M rows; falling finite losses; the step
-    against the CPU on the first CPU_ROWS rows), predict of the best
-    checkpoint on the 10,000-row serving file (no kernel launch) with GPU
+    FeaturesLinear's E = 1 into 2.1M rows, and xdfm's K8; falling finite
+    losses; the step against the CPU on the first CPU_ROWS rows), predict
+    of the best checkpoint on the 10,000-row serving file (no kernel
+    launch but xdfm's K8 forward) with GPU
     vs CPU logits, the peak device memory of the run and warm train
     rows/s (printed, not claimed)."""
     steps = 2 * TRAIN_BATCHES
@@ -2090,16 +2212,19 @@ def phase_criteo_zoo(tmp, data, first, inp):
     totals = dict.fromkeys(read_counts(), 0)
     for model in ("xdfm", "dfm"):
         exp = f"cr_{model}"
+        flags = ["--model", model, "--nfeat", str(CRITEO_NFEAT), "--nfield",
+                 "39", "--batch_size", "4096"]
+        cin = cin_want(flags_config(flags), 4096)
         torch.cuda.reset_peak_memory_stats()
         counts, rows, gap, seconds, cfg = train_run(
-            tmp, exp, ["--model", model, "--nfeat", str(CRITEO_NFEAT),
-                       "--nfield", "39", "--batch_size", "4096"],
-            data, "criteo", cut, 2, zoo_want(steps, evals, 0, tables(model)))
+            tmp, exp, flags, data, "criteo", cut, 2,
+            zoo_want(steps, evals, 0, tables(model), cin))
         peak = torch.cuda.max_memory_allocated()
         ckpt = os.path.join(tmp, "ckpt", f"{exp}_{SEED}")
         with timed(f"{exp}.predict"):
             runs = [run_predict(ckpt, inp, os.path.join(
-                tmp, f"{exp}.scores"), 10_000, None)[0] for _ in range(2)]
+                tmp, f"{exp}.scores"), 10_000, None, cin[0])[0]
+                for _ in range(2)]
             err = first_batch_logit_err(ckpt, cfg, inp)
         with timed(f"{exp}.warm_rate"):
             rates, ms_step, trainer = warm_train_rate(cfg, data, epochs=3)
@@ -2512,7 +2637,8 @@ def want_per_step(kernels, tables, backward=True):
             "entmax_bwd": 0 if fused or not backward else 1,
             "table_grad": tables,
             "arm1h_fwd": 1 if fused else 0,
-            "arm1h_bwd": 1 if fused and backward else 0}
+            "arm1h_bwd": 1 if fused and backward else 0,
+            "cin_fwd": 0, "cin_bwd": 0}
 
 
 def phase_bench():
@@ -2906,6 +3032,8 @@ def main():
         arm = phase_kernel_arm()
     with timed("kernel_multihead"):
         mh = phase_kernel_multihead()
+    with timed("kernel_cin"):
+        cin = phase_kernel_cin()
     with tempfile.TemporaryDirectory() as tmp:
         # the row cache of every phase's parses lives and dies with tmp
         os.environ["ARMNET_CACHE_DIR"] = os.path.join(tmp, "row_cache")
@@ -2976,6 +3104,29 @@ def main():
             ("fwd", 184, "arm1h.cu", "arm1h_col.cu"),
             ("bwd", 211, "arm1h_bwd.cuh", "arm1h_bwd_col.cu"))]
 
+    def cin_err(kind, c):
+        errs = cin[("check", c)]["errs"]
+        return max(v for k, v in errs.items() if (k == "out") == (
+            kind == "fwd"))
+
+    cin_lines = [
+        {"name": f"cin_{kind}", "route": "cuda",
+         "source": "armnet_tpu_torch/kernels/csrc/cin.cu",
+         "replaces": None,
+         "new": "the JAX package's CIN is XLA ops, with no Pallas kernel",
+         "launches": launches[f"cin_{kind}"],
+         "max_rel_err": cin_err(kind, 200),
+         "ms": r["time_ms"], "host_incl_ms": r["host_incl_ms"],
+         "plain_ms": r["plain_ms"], "plain_rows": r["plain_rows"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": None, "blocked_ms": r["blocked_ms"],
+         "shape": r[f"cin_{kind}"],
+         "layer0": {k: r0[k] for k in ("time_ms", "plain_ms", "blocked_ms",
+                                       "bound_ms")} | {
+             "shape": r0[f"cin_{kind}"],
+             "max_rel_err": cin_err(kind, 39)}}
+        for kind in ("fwd", "bwd")
+        for r, r0 in ((cin[(kind, 200)], cin[(kind, 39)]),)]
     crit, uci = tg["criteo_batch"], tg["uci_16_live"]
     zipf = {k[len("zipf_"):]: {"table_grad_ms": v["whole_ms"],
                                "library_ms": v["library_ms"]}
@@ -3054,7 +3205,7 @@ def main():
              "plain_ms": uci["plain_ms"], "bound_ms": uci["bound_ms"],
              "bound_by": uci["bound_by"], "library_ms": uci["library_ms"],
              "library_host_incl_ms": uci["library_host_incl_ms"]}},
-        *arm_lines,
+        *arm_lines, *cin_lines,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -279,7 +279,8 @@ def test_run_on_the_cpu_returns_the_whole_record(kernels):
     assert rec["card"] == {"before": None, "after": None}
     assert rec["device_ms_per_step"] is None and rec["idle_share"] is None
     assert set(rec["launches"]) == {"entmax_fwd", "entmax_bwd", "table_grad",
-                                    "arm1h_fwd", "arm1h_bwd"}
+                                    "arm1h_fwd", "arm1h_bwd", "cin_fwd",
+                                    "cin_bwd"}
     assert not any(rec["launches"].values())
     assert np.isfinite(rec["loss_last"])
     assert set(rec["seconds"]) == {"setup", "warm", "card", "timed",

@@ -3,7 +3,10 @@ the entmax forward and backward, the table gradient (also at the zoo's
 widths E = 1 and 20 into 2.1M rows) and the fused ARM-1h forward and
 backward, and one train step on the card against the same step on the
 CPU, through the composed and the fused interaction; the entmax kernels at
-the multi-head channel counts; for every other zoo model eval logits and
+the multi-head channel counts; the CIN layer's fused kernels (K8) against
+its plain version and blocked route, the route it takes under TF32 and
+bfloat16, and its memory at the xdfm_criteo step; for every other zoo
+model eval logits and
 one train step against the CPU with the kernels it launches, and AFN's
 table gradient through its clamp-abs; the learned-alpha entmax on the card
 against the CPU, and a --bf16 train step against the CPU's.
@@ -23,11 +26,13 @@ import numpy as np
 import pytest
 import torch
 
-from armnet_tpu_torch.kernels import (arm_cuda, bench, entmax_cuda,
+from armnet_tpu_torch import set_matmul_precision
+from armnet_tpu_torch.kernels import (arm_cuda, bench, cin_cuda, entmax_cuda,
                                       scatter_cuda)
 from armnet_tpu_torch.models import create_model
 from armnet_tpu_torch.models.config import ModelConfig
 from armnet_tpu_torch.ops.entmax import entmax_bisect
+from armnet_tpu_torch.ops import interaction
 from armnet_tpu_torch.ops.interaction import arm1h_fused
 from armnet_tpu_torch.train.step import clamp_grads, forward_loss
 
@@ -1029,3 +1034,143 @@ def test_one_process_nccl_group_runs_the_multi_process_trainer(cuda,
         assert tuple(state["embedding.weight"].shape) == (600, 4)
     finally:
         dist.destroy_process_group()
+
+
+# (B, E, F, C, N) of CIN layers: the published widths (layer 0 reads the
+# fields, C = F; later layers the 200 maps) at 4,096 rows, then ragged
+# rows and channels on each of the kernels' tile shapes (N past 128 and up
+# to 128; dx's C up to 40 on its two-field tile, with an odd F leaving one
+# field to the last pass, and at 40 itself; C past 200 spans two column
+# tiles of the dx kernel)
+CIN_SHAPES = [(4096, 10, 39, 39, 200), (4096, 10, 39, 200, 200),
+              (1001, 10, 39, 37, 200), (333, 3, 7, 45, 60),
+              (257, 4, 5, 201, 203), (97, 4, 6, 6, 5), (61, 10, 39, 39, 41),
+              (130, 10, 4, 40, 128)]
+
+
+def _cin_f64(x0, xk, w, out, dout):
+    """The plain forward and backward in float64 from float32 inputs (the
+    backward's ReLU mask from the kernel's `out`, so both take the same
+    mask)."""
+    d = [t.double() for t in (x0, xk, w)]
+    fwd = cin_cuda.cin_fwd_plain(*d)
+    bwd = cin_cuda.cin_bwd_plain(*d, out.double(), dout.double())
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("shape", CIN_SHAPES, ids=str)
+def test_cin_kernels_match_plain(cuda, shape):
+    """K8's forward and backward against the plain version in float64:
+    the kernels sum the F * C (forward, dW over the rows too) products in
+    float32 in another order, so each is held to 2e-5 of its largest
+    entry."""
+    g = torch.Generator(device=cuda).manual_seed(shape[0])
+    x0, xk, w, dout = bench.cin_inputs(g, shape)
+    out = cin_cuda.cin_fwd(x0, xk, w)
+    grads = cin_cuda.cin_bwd(x0, xk, w, out, dout)
+    torch.cuda.synchronize()
+    want, want_grads = _cin_f64(x0, xk, w, out, dout)
+    assert (out == 0).any() and (out > 0).any()
+    for got, ref in ((out, want), *zip(grads, want_grads)):
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        torch.testing.assert_close(got.double(), ref, rtol=0,
+                                   atol=2e-5 * float(ref.abs().max()))
+
+
+def test_cin_backward_is_deterministic(cuda):
+    """dW sums its row slices and dx0 its rows in a fixed order: two calls
+    give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    args = bench.cin_inputs(g, (2048, 10, 39, 200, 200))
+    out = cin_cuda.cin_fwd(*args[:3])
+    a = cin_cuda.cin_bwd(*args[:3], out, args[3])
+    b = cin_cuda.cin_bwd(*args[:3], out, args[3])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("layer0", [True, False])
+def test_cin_fused_route_matches_blocked(cuda, layer0):
+    """The op on the card (fused) against its blocked route in full
+    float32, through autograd, at layer 0 (x0 and xk the same tensor, whose
+    two gradients add) and at a later layer; the blocked route in blocks
+    of 1,000 rows that do not divide 4,096. The inputs are positive and
+    the filter's first 100 maps positive, the rest negative, so every
+    pre-activation lies far from ReLU's kink on the same side in both
+    routes (one output rounded across 0 would move a whole row of dx)."""
+    set_matmul_precision("highest")
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x0 = torch.rand((4096, 39, 10), generator=g, device=cuda) + 0.1
+    xk = x0 if layer0 else (torch.rand(
+        (4096, 10, 200), generator=g, device=cuda) + 0.1).transpose(1, 2)
+    w = (torch.rand((39 * xk.shape[1], 200), generator=g, device=cuda)
+         + 0.1) * 0.01
+    w[:, 100:] *= -1
+    dy = torch.randn((4096, 200, 10), generator=g, device=cuda)
+    grads = []
+    for route in ("fused", "blocked"):
+        a, w_ = x0.clone().requires_grad_(), w.clone().requires_grad_()
+        b_ = a if layer0 else xk.clone().requires_grad_()
+        if route == "fused":
+            assert interaction.cin_route(a, b_, w_) == "fused"
+            y = interaction.compressed_interaction_step(a, b_, w_, 0)
+        else:
+            y = interaction._CINBlocked.apply(
+                a.transpose(1, 2), b_.transpose(1, 2), w_, 1000,
+                0).transpose(1, 2)
+        (y * dy).sum().backward()
+        grads.append((y.detach(), a.grad, w_.grad,
+                      None if layer0 else b_.grad))
+    y = grads[0][0]
+    assert (y[:, :100] > 0).all() and (y[:, 100:] == 0).all()
+    for got, ref in zip(*grads):
+        if ref is not None:
+            torch.testing.assert_close(got, ref, rtol=0,
+                                       atol=2e-5 * float(ref.abs().max()))
+
+
+def test_cin_lower_precision_takes_blocked_route(cuda):
+    """Under TF32 (--matmul_precision high) and bfloat16 activations the
+    op takes the blocked route, whose GEMMs then run in that precision;
+    in full float32 the fused one. The counters say which."""
+    from armnet_tpu_torch.utils import tracing
+
+    x0 = torch.randn((64, 39, 10), device=cuda)
+    w = torch.randn((39 * 39, 200), device=cuda) * 0.01
+    try:
+        for precision, dtype, route in (("highest", torch.float32, "fused"),
+                                        ("high", torch.float32, "blocked"),
+                                        ("highest", torch.bfloat16,
+                                         "blocked")):
+            set_matmul_precision(precision)
+            x = x0.to(dtype)
+            assert interaction.cin_route(x, x, w) == route
+            with tracing.recording() as rec:
+                interaction.compressed_interaction_step(x, x, w, 0)
+            assert rec.counters[f"armnet.cin.{route}"] == 1
+            assert rec.counters["armnet.cin.blocks"] == (route == "blocked")
+    finally:
+        set_matmul_precision("highest")
+
+
+def test_cin_fused_peak_memory_at_the_criteo_step(cuda):
+    """Three CIN layers at the xdfm_criteo step (65,536 rows, 39 fields, E
+    10, 200 maps), forward and backward on the fused route: the peak stays
+    under 10 GB (one whole outer product would be 20.4 GB a layer)."""
+    set_matmul_precision("highest")
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x0 = (torch.randn((65536, 39, 10), generator=g, device=cuda)
+          * 0.5).requires_grad_()
+    ws = [(torch.randn((39 * c, 200), generator=g, device=cuda)
+           * (39 * c) ** -0.5).requires_grad_() for c in (39, 200, 200)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    xk, pooled = x0, []
+    for k, w in enumerate(ws):
+        xk = interaction.compressed_interaction_step(x0, xk, w, k)
+        pooled.append(xk.sum(-1))
+    torch.cat(pooled, 1).sum().backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    assert peak < 10e9, peak
+    assert all(w.grad is not None and w.grad.abs().sum() > 0 for w in ws)
