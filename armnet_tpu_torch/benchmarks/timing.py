@@ -26,8 +26,8 @@ import time
 import numpy as np
 import torch
 
-from armnet_tpu_torch.kernels import (arm_cuda, cin_cuda, entmax_cuda,
-                                      scatter_cuda)
+from armnet_tpu_torch.kernels import (arm_cuda, bn_cuda, cin_cuda,
+                                      entmax_cuda, scatter_cuda)
 from armnet_tpu_torch.kernels.bench import device_events
 
 __all__ = ["KERNEL_CHOICES", "add_timing_args", "bench_batch", "shift_ids",
@@ -109,19 +109,22 @@ def zero_launch_counts():
     entmax_cuda.LAUNCHES = entmax_cuda.BWD_LAUNCHES = scatter_cuda.LAUNCHES = 0
     arm_cuda.LAUNCHES = arm_cuda.BWD_LAUNCHES = 0
     cin_cuda.LAUNCHES = cin_cuda.BWD_LAUNCHES = 0
+    bn_cuda.LAUNCHES = bn_cuda.BWD_LAUNCHES = 0
 
 
 def launch_counts():
     """{kernel: launches since the counts were last set to 0}: K1/K2
     entmax_fwd, K3/K4 entmax_bwd, K7 table_grad, K5 arm1h_fwd, K6
-    arm1h_bwd, K8 cin_fwd and cin_bwd."""
+    arm1h_bwd, K8 cin_fwd and cin_bwd, K9 bn_fwd and bn_bwd."""
     return {"entmax_fwd": entmax_cuda.LAUNCHES,
             "entmax_bwd": entmax_cuda.BWD_LAUNCHES,
             "table_grad": scatter_cuda.LAUNCHES,
             "arm1h_fwd": arm_cuda.LAUNCHES,
             "arm1h_bwd": arm_cuda.BWD_LAUNCHES,
             "cin_fwd": cin_cuda.LAUNCHES,
-            "cin_bwd": cin_cuda.BWD_LAUNCHES}
+            "cin_bwd": cin_cuda.BWD_LAUNCHES,
+            "bn_fwd": bn_cuda.LAUNCHES,
+            "bn_bwd": bn_cuda.BWD_LAUNCHES}
 
 
 def profile_steps(step_fn, n, device):

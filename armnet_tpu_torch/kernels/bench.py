@@ -11,12 +11,14 @@ the zoo's widths E = 1 and 20), split into its sort and its
 fill and segmented sums beside the PyTorch route it replaced and
 `zeros + index_add_`, the fused ARM-1h forward and backward (K5/K6) at the
 Criteo and Frappe steps (and Frappe at nemb 100) and every alpha beside
-the composed path and the bound, K6 split into its kernels, and the
+the composed path and the bound, K6 split into its kernels, the CIN layer
+(K8) at the xdfm_criteo step, BatchNorm's train-mode kernels (K9) at the
+cells' BatchNorms beside the plain version and the composed path, and the
 registers and spills that ptxas reports.
 
     python -m armnet_tpu_torch.kernels.bench [--out FILE] [SECTION ...]
 
-SECTION is entmax, entmax_bwd, entmax_routes, table_grad, arm or cin
+SECTION is entmax, entmax_bwd, entmax_routes, table_grad, arm, cin or bn
 (all if none is named).
 
 `time_ms` is the device's time of one call: the median of 20 CUDA-event
@@ -36,10 +38,11 @@ import subprocess
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from armnet_tpu_torch.kernels import (arm_cuda, build, cin_cuda, entmax_cuda,
-                                      scatter_cuda)
-from armnet_tpu_torch.kernels.bounds import (bound, cin_bounds,
+from armnet_tpu_torch.kernels import (arm_cuda, bn_cuda, build, cin_cuda,
+                                      entmax_cuda, scatter_cuda)
+from armnet_tpu_torch.kernels.bounds import (bn_bounds, bound, cin_bounds,
                                              entmax_bound_ms,
                                              entmax_bwd_ops_per_element,
                                              fused_arm_bounds)
@@ -85,6 +88,12 @@ CRITEO_NFEAT = 2_100_000
 # (ops/interaction's, as the program runs it) on all
 CIN_LAYERS = ((65536, 10, 39, 39, 200), (65536, 10, 39, 200, 200))
 PLAIN_CIN_ROWS = 8192
+# [N, C, S] of the train-mode BatchNorms that take K9 at the cells'
+# 65,536-row step: arm_bn of cr_armnet1h ([B, O, E]: 128 x 10) and of
+# cr_armnet (4 heads of 64); the MLPs' [B, C] BatchNorms (S = 1) stay on
+# the composed ops (ops/layers.bn_route)
+BN_SHAPES = (("cr_armnet1h.arm_bn", (65536, 128, 10)),
+             ("cr_armnet.arm_bn", (65536, 256, 10)))
 ALPHAS = (1.5, 1.7, 2.0, 2.5)
 SEED = 2025
 # Zipf exponents of the skewed table-gradient cases: 0.99 is YCSB's
@@ -674,13 +683,98 @@ def bench_cin():
         torch.cuda.empty_cache()
 
 
+def bn_inputs(g, shape):
+    """Seeded x [N, C, S] (1 + 1e-3 noise: arm_bn's exp(.) near 1, where S >
+    1; unit noise for an MLP's), dy, the rows' mask (every row real, as the
+    cells' batches are), its count, weight and bias, on the card."""
+    n, c, s = shape
+    x = torch.randn(shape, generator=g, device="cuda")
+    if s > 1:
+        x = x.mul_(1e-3).add_(1.0)
+    dy = torch.randn(shape, generator=g, device="cuda") * 1e-3
+    rows = torch.ones(n, device="cuda")
+    weight = torch.rand(c, generator=g, device="cuda") + 0.5
+    bias = torch.randn(c, generator=g, device="cuda") * 0.1
+    return x, dy, rows, rows.sum(), weight, bias
+
+
+def bench_bn():
+    """K9 at BN_SHAPES, masked as the trainer calls it: the forward and the
+    backward (device and host-inclusive ms, launches a call, GB/s of the
+    bytes the bound counts and of the design's: x read three times and y
+    written (forward), x and dy read twice and dx written (backward)),
+    the bound, the plain version, the composed path (the module's PyTorch
+    ops, forward and autograd's backward) and the library (F.batch_norm in
+    training mode, cuDNN: the same function where every row is real, as
+    here; forward and autograd's backward); ptxas first."""
+    from armnet_tpu_torch.ops.layers import BatchNorm, batch_mask_scope
+
+    yield {"bn_ptxas": ptxas_report(build.build_log("batch_norm"))}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for name, shape in BN_SHAPES:
+        x, dy, rows, count, weight, bias = bn_inputs(g, shape)
+        c, s = shape[1], shape[2]
+        rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        args = (rows, count, s, weight, bias, rm, rv, 1e-5, 0.9)
+        y, mean, rstd = bn_cuda.bn_fwd(x, *args)
+        bwd_args = (rows, count, s, weight, mean, rstd)
+        module = BatchNorm(c, 1, device="cuda").train()
+        leaf = x.detach().requires_grad_()
+        with batch_mask_scope(rows):
+            out = module._composed(leaf, 1, rows)
+        params = [leaf, module.weight, module.bias]
+        lib_rm, lib_rv = rm.clone(), rv.clone()
+        lib_params = [t.detach().requires_grad_() for t in (x, weight, bias)]
+        lib_out = F.batch_norm(lib_params[0], lib_rm, lib_rv, *lib_params[1:],
+                               True, 0.1, 1e-5)
+
+        def composed_fwd():
+            with batch_mask_scope(rows):
+                module._composed(x, 1, rows)
+
+        def library_fwd():
+            F.batch_norm(x, lib_rm, lib_rv, weight, bias, True, 0.1, 1e-5)
+
+        calls = {
+            "fwd": (lambda: bn_cuda.bn_fwd(x, *args),
+                    lambda: bn_cuda.bn_fwd_plain(x, *args), composed_fwd,
+                    library_fwd),
+            "bwd": (lambda: bn_cuda.bn_bwd(x, dy, *bwd_args),
+                    lambda: bn_cuda.bn_bwd_plain(x, dy, *bwd_args),
+                    lambda: torch.autograd.grad(out, params, dy,
+                                                retain_graph=True),
+                    lambda: torch.autograd.grad(lib_out, lib_params, dy,
+                                                retain_graph=True))}
+        bounds = bn_bounds(shape)
+        tensor = 4 * x.numel()
+        for kind, (kernel, plain, composed, library) in calls.items():
+            dev = time_ms(kernel)
+            bms, by, nbytes, _ = bounds[kind]
+            design = (4 if kind == "fwd" else 5) * tensor
+            yield {f"bn_{kind}": name, "shape": dict(zip("NCS", shape)),
+                   "time_ms": dev, "host_incl_ms": host_incl_ms(kernel),
+                   "launches": (bn_cuda.FWD_CALL_LAUNCHES if kind == "fwd"
+                                else bn_cuda.BWD_CALL_LAUNCHES),
+                   "bound_ms": bms, "bound_by": by,
+                   "roofline_pct": 100 * bms / dev,
+                   "bound_gb_per_s": nbytes / dev / 1e6,
+                   "design_gb_per_s": design / dev / 1e6,
+                   "plain_ms": time_ms(plain, reps=5, warmup=1),
+                   "composed_ms": time_ms(composed, reps=5, warmup=1),
+                   "library_ms": time_ms(library),
+                   "kernels_ms": kernel_device_ms(kernel, reps=2)}
+        del x, dy, y, out, leaf, params, calls, module, lib_out, lib_params
+        torch.cuda.empty_cache()
+
+
 def main(composed_arm, argv=None):
     """Runs the named sections; `composed_arm` is the interaction that the
     arm section times K5/K6 beside."""
     sections = {"entmax": bench_entmax, "entmax_bwd": bench_entmax_bwd,
                 "entmax_routes": bench_entmax_routes,
                 "table_grad": bench_table_grad,
-                "arm": lambda: bench_arm(composed_arm), "cin": bench_cin}
+                "arm": lambda: bench_arm(composed_arm), "cin": bench_cin,
+                "bn": bench_bn}
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out")
     p.add_argument("sections", nargs="*", choices=list(sections),

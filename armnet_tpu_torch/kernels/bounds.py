@@ -108,3 +108,19 @@ def cin_bounds(shape):
              2 * fmas)):
         out[name] = (*bound(nbytes, nops), nbytes, nops)
     return out
+
+
+def bn_bounds(shape):
+    """{"fwd"|"bwd": (bound ms, bound_by, bytes, f32 instruction slots)} of
+    BatchNorm's train-mode kernels (K9) at x [N, C, S]: bytes of x read and
+    y written with the rows' mask (forward), of x and dy read and dx
+    written with the mask (backward); f32 slots with a multiply-add as
+    one: the mean's sum 1, the squares' 3 and the output's 2 an element
+    (forward), the two sums' 3 and dx's 4 (backward)."""
+    n, c, s = shape
+    numel = n * c * s
+    out = {}
+    for name, nbytes, nops in (("fwd", 4 * (2 * numel + n), 6 * numel),
+                               ("bwd", 4 * (3 * numel + n), 7 * numel)):
+        out[name] = (*bound(nbytes, nops), nbytes, nops)
+    return out

@@ -3,7 +3,8 @@
   TorchLinear   nn.Linear with its default init, from a torch.Generator;
                 bias-free with bias=False
   BatchNorm     torch BatchNorm over a given channel axis; in train mode
-                with masked batch statistics under batch_mask_scope
+                with masked batch statistics under batch_mask_scope, on
+                the card as one kernel pair (bn_route)
   Dropout       inverted dropout whose mask comes from the generator of
                 the active dropout_scope
   Embedding     value-scaled embedding gather -> [B, F, E]
@@ -35,15 +36,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from armnet_tpu_torch.kernels import bn_cuda
 from armnet_tpu_torch.ops import initializers as init
 from armnet_tpu_torch.ops.embedding import embedding_bag
 from armnet_tpu_torch.parallel.mesh import all_reduce_sum
+from armnet_tpu_torch.utils.tracing import count, span
 
 __all__ = ["TorchLinear", "BatchNorm", "Dropout", "Embedding",
            "FeaturesLinear", "fm_pool", "MLP", "SelfAttnLayer",
            "MultiHeadAttention", "triu_indices", "all_pair_indices",
            "normalize_adj", "batch_mask_scope", "current_batch_mask",
-           "dropout_scope", "promoted"]
+           "dropout_scope", "promoted", "bn_route"]
 
 # The train step enters batch_mask_scope around the forward so BatchNorm
 # computes MASKED batch statistics: the loader pads the final partial batch
@@ -133,6 +136,46 @@ class TorchLinear(nn.Module):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+def bn_route(training, x, ch):
+    """'fused' for a train-mode float32 CUDA input with more than one
+    element a channel and row after the channel axis `ch` (S > 1 in the
+    kernels' [N, C, S] view: ARM-Net's arm_bn over [B, O, E], the other
+    BatchNorms over [B, C, E]), the kernel pair of kernels/bn_cuda.py; else
+    'composed' (PyTorch ops: the CPU, bfloat16 activations under --bf16,
+    eval mode's running statistics, and S = 1, an MLP's [B, C]: there the
+    kernels' other rounding moved xdfm_criteo.train's losses past their
+    one-ulp limits on the card, PERF.md §6)."""
+    if (training and x.is_cuda and x.dtype == torch.float32
+            and math.prod(x.shape[ch + 1:]) > 1):
+        return "fused"
+    return "composed"
+
+
+class _BatchNormFused(torch.autograd.Function):
+    """bn_cuda's kernels on x3 [N, C, S] (contiguous) -> y3; keeps x3, the
+    mask, the count, mean and rstd ([C]) for the backward."""
+
+    @staticmethod
+    def forward(ctx, x3, weight, bias, rows, cnt, spatial, running_mean,
+                running_var, eps, keep, group):
+        with span("armnet.bn.forward"):
+            y3, mean, rstd = bn_cuda.bn_fwd(
+                x3, rows, cnt, spatial, weight, bias, running_mean,
+                running_var, eps, keep, group)
+        ctx.save_for_backward(x3, weight, rows, cnt, mean, rstd)
+        ctx.spatial, ctx.group = spatial, group
+        return y3
+
+    @staticmethod
+    def backward(ctx, dy3):
+        x3, weight, rows, cnt, mean, rstd = ctx.saved_tensors
+        with span("armnet.bn.backward"):
+            dx, dweight, dbias = bn_cuda.bn_bwd(
+                x3, dy3.contiguous(), rows, cnt, ctx.spatial, weight, mean,
+                rstd, ctx.group)
+        return dx, dweight, dbias, *([None] * 8)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with torch defaults (eps 1e-5, momentum 0.1, i.e. keep 0.9
     of the running average) that normalizes over every axis but
@@ -142,7 +185,14 @@ class BatchNorm(nn.Module):
     inside batch_mask_scope both statistics take the real rows only (n =
     real rows x the other reduced axes), and an input that is not
     batch-led raises. The statistics are float32; the output takes the
-    input's dtype (mean, scale and shift cast to it)."""
+    input's dtype (mean, scale and shift cast to it).
+
+    bn_route picks how: a train-mode float32 CUDA input with S > 1 takes
+    the kernel pair of kernels/bn_cuda.py (the input viewed as [N, C, S]:
+    the axes before the channel, the channel, the axes after it), inside
+    the spans armnet.bn.forward and armnet.bn.backward; everything else
+    the composed PyTorch ops. Each call counts its route (armnet.bn.fused,
+    armnet.bn.composed) through utils/tracing."""
 
     momentum = 0.9              # the share of the running average kept
 
@@ -156,16 +206,10 @@ class BatchNorm(nn.Module):
                              init.zeros((num_features,), device))
         self.register_buffer("running_var", init.ones((num_features,), device))
 
-    def _batch_stats(self, x, ch):
+    def _batch_stats(self, x, ch, mask):
         xf = x.float()
         red = tuple(i for i in range(x.ndim) if i != ch)
         bshape = [x.shape[i] if i == ch else 1 for i in range(x.ndim)]
-        mask = current_batch_mask()
-        if mask is not None and (ch == 0 or mask.shape[0] != x.shape[0]):
-            raise ValueError(
-                f"batch_mask_scope active (mask {tuple(mask.shape)}) but this "
-                f"BatchNorm input {tuple(x.shape)} (channel axis {ch}) is not "
-                f"batch-led; masked statistics cannot be applied")
         if mask is None:
             n = math.prod(x.shape[i] for i in red)
             mean = xf.mean(red)
@@ -181,12 +225,44 @@ class BatchNorm(nn.Module):
             ((xf - mean.view(bshape)).square() * w).sum(red), group) / n
         return mean, var, n / torch.clamp_min(n - 1, 1.0)
 
+    def _fused(self, x, ch, mask):
+        rows = math.prod(x.shape[:ch])
+        x3 = x.reshape(rows, x.shape[ch], -1).contiguous()
+        if mask is None:
+            w = cnt = group = None
+            spatial = rows * x3.shape[2]
+        else:
+            group = getattr(_scope, "group", None)
+            m = mask.to(torch.float32)
+            per = rows // x.shape[0]
+            w = (m if per == 1 else m.repeat_interleave(per)).contiguous()
+            cnt = all_reduce_sum(m.sum(), group)
+            spatial = per * x3.shape[2]
+        y3 = _BatchNormFused.apply(x3, self.weight, self.bias, w, cnt,
+                                   spatial, self.running_mean,
+                                   self.running_var, self.eps, self.momentum,
+                                   group)
+        return y3.view(x.shape)
+
     def forward(self, x):
         ch = self.channel_axis % x.ndim
+        mask = current_batch_mask() if self.training else None
+        if mask is not None and (ch == 0 or mask.shape[0] != x.shape[0]):
+            raise ValueError(
+                f"batch_mask_scope active (mask {tuple(mask.shape)}) but this "
+                f"BatchNorm input {tuple(x.shape)} (channel axis {ch}) is not "
+                f"batch-led; masked statistics cannot be applied")
+        route = bn_route(self.training, x, ch)
+        count(f"armnet.bn.{route}")
+        if route == "fused":
+            return self._fused(x, ch, mask)
+        return self._composed(x, ch, mask)
+
+    def _composed(self, x, ch, mask):
         bshape = [1] * x.ndim
         bshape[ch] = x.shape[ch]
         if self.training:
-            mean, var, unbias = self._batch_stats(x, ch)
+            mean, var, unbias = self._batch_stats(x, ch, mask)
             with torch.no_grad():
                 self.running_mean.copy_(self.momentum * self.running_mean
                                         + (1 - self.momentum) * mean)

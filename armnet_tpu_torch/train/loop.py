@@ -232,7 +232,7 @@ class Trainer:
     def fit(self, epochs, patience=1, eval_freq=10000, report_freq=30):
         best_valid, best_test, patience_cnt = 0.0, 0.0, 0
         start = time.time()
-        cin_before = counts("armnet.cin.")
+        cin_before, bn_before = counts("armnet.cin."), counts("armnet.bn.")
         if self.metrics_path:
             open(self.metrics_path, "w").close()   # one fit = one file
 
@@ -292,4 +292,9 @@ class Trainer:
         if any(cin.values()):
             self.logger.info(f"cin: calls by route and blocked-route blocks "
                              f"{dict(sorted(cin.items()))}")
+        bn = {k: v - bn_before.get(k, 0)
+              for k, v in counts("armnet.bn.").items()}
+        if any(bn.values()):
+            self.logger.info(f"bn: BatchNorm calls by route "
+                             f"{dict(sorted(bn.items()))}")
         return best_valid, best_test

@@ -280,7 +280,7 @@ def test_run_on_the_cpu_returns_the_whole_record(kernels):
     assert rec["device_ms_per_step"] is None and rec["idle_share"] is None
     assert set(rec["launches"]) == {"entmax_fwd", "entmax_bwd", "table_grad",
                                     "arm1h_fwd", "arm1h_bwd", "cin_fwd",
-                                    "cin_bwd"}
+                                    "cin_bwd", "bn_fwd", "bn_bwd"}
     assert not any(rec["launches"].values())
     assert np.isfinite(rec["loss_last"])
     assert set(rec["seconds"]) == {"setup", "warm", "card", "timed",

@@ -5,7 +5,10 @@ backward, and one train step on the card against the same step on the
 CPU, through the composed and the fused interaction; the entmax kernels at
 the multi-head channel counts; the CIN layer's fused kernels (K8) against
 its plain version and blocked route, the route it takes under TF32 and
-bfloat16, and its memory at the xdfm_criteo step; for every other zoo
+bfloat16, and its memory at the xdfm_criteo step; BatchNorm's train-mode
+kernels (K9) against their plain version at the cells' shapes, bit for
+bit on a second call, the module's route and a one-rank group; for every
+other zoo
 model eval logits and
 one train step against the CPU with the kernels it launches, and AFN's
 table gradient through its clamp-abs; the learned-alpha entmax on the card
@@ -27,8 +30,8 @@ import pytest
 import torch
 
 from armnet_tpu_torch import set_matmul_precision
-from armnet_tpu_torch.kernels import (arm_cuda, bench, cin_cuda, entmax_cuda,
-                                      scatter_cuda)
+from armnet_tpu_torch.kernels import (arm_cuda, bench, bn_cuda, cin_cuda,
+                                      entmax_cuda, scatter_cuda)
 from armnet_tpu_torch.models import create_model
 from armnet_tpu_torch.models.config import ModelConfig
 from armnet_tpu_torch.ops.entmax import entmax_bisect
@@ -1174,3 +1177,164 @@ def test_cin_fused_peak_memory_at_the_criteo_step(cuda):
     peak = torch.cuda.max_memory_allocated()
     assert peak < 10e9, peak
     assert all(w.grad is not None and w.grad.abs().sum() > 0 for w in ws)
+
+
+# [N, C, S] of BatchNorm's kernels (K9): the cells' arm_bn (bench.
+# BN_SHAPES) and an MLP BatchNorm of the ARM cells (S = 1, which the module
+# keeps on the composed ops), then rows whose C * S is no multiple of 4
+# (the scalar loads), a row of many column tiles, fewer rows than a slab's
+# lanes and one row
+BN_CARD_SHAPES = [shape for _, shape in bench.BN_SHAPES] + [
+    (65536, 500, 1), (1001, 7, 3), (333, 5, 1), (257, 600, 10),
+    (7, 64, 10), (1, 4, 10)]
+
+
+def _bn_args(g, shape, masked):
+    """Kernel arguments at [N, C, S]: bench.bn_inputs, the last eighth of
+    the rows pad rows of outliers (50) where masked, else no mask."""
+    x, dy, rows, _, weight, bias = bench.bn_inputs(g, shape)
+    if masked and shape[0] > 1:
+        rows[-(-shape[0] // 8):] = 0.0
+        x[rows == 0] = 50.0
+    rows, count = (rows, rows.sum()) if masked else (None, None)
+    spatial = shape[2] if masked else shape[0] * shape[2]
+    return x, dy, rows, count, spatial, weight, bias
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("shape", BN_CARD_SHAPES, ids=str)
+def test_bn_kernels_match_plain(cuda, shape, masked):
+    """K9's forward and backward against the plain version on the same
+    inputs: y, mean, rstd, the running statistics, dx, dweight and dbias,
+    each norm-wise within KERNELS_VS_PLAIN_RTOL (chip_smoke's kernels
+    against their plain versions)."""
+    from chip_smoke import KERNELS_VS_PLAIN_RTOL, within
+
+    g = torch.Generator(device=cuda).manual_seed(shape[0])
+    x, dy, rows, count, spatial, weight, bias = _bn_args(g, shape, masked)
+    c = shape[1]
+    got, want = [], []
+    for fwd, bwd, sink in ((bn_cuda.bn_fwd, bn_cuda.bn_bwd, got),
+                           (bn_cuda.bn_fwd_plain, bn_cuda.bn_bwd_plain,
+                            want)):
+        rm = torch.full((c,), 0.5, device=cuda)
+        rv = torch.full((c,), 2.0, device=cuda)
+        y, mean, rstd = fwd(x, rows, count, spatial, weight, bias, rm, rv,
+                            1e-5, 0.9)
+        grads = bwd(x, dy, rows, count, spatial, weight, mean, rstd)
+        sink += [y, mean, rstd, rm, rv, *grads]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("y", "mean", "rstd", "running_mean",
+                           "running_var", "dx", "dweight", "dbias"),
+                          got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        assert within(a - b, b, KERNELS_VS_PLAIN_RTOL, 0.0), (
+            name, float((a - b).norm() / b.norm()))
+
+
+def test_bn_kernels_are_deterministic(cuda):
+    """The slabs' partials are summed in a fixed order: two calls of the
+    forward and of the backward give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x, dy, rows, count, spatial, weight, bias = _bn_args(
+        g, (65536, 128, 10), True)
+    outs = []
+    for _ in range(2):
+        rm, rv = torch.zeros(128, device=cuda), torch.ones(128, device=cuda)
+        y, mean, rstd = bn_cuda.bn_fwd(x, rows, count, spatial, weight, bias,
+                                       rm, rv, 1e-5, 0.9)
+        outs.append((y, mean, rstd, rm, rv, *bn_cuda.bn_bwd(
+            x, dy, rows, count, spatial, weight, mean, rstd)))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,axis", [((4096, 128, 10), 1),
+                                        ((512, 6, 20), 1),
+                                        ((64, 4, 5, 3), 1)])
+def test_bn_module_routes_on_the_card(cuda, shape, axis):
+    """A float32 train-mode BatchNorm on the card with S > 1 takes the
+    kernels (one fused call counted, the kernels' launches) and matches
+    the composed path on the card: output, running statistics and the
+    gradients of x, weight and bias, norm-wise within 1e-5, on an input
+    whose mean and spread are alike (on 1 + 1e-3 noise the composed path's
+    float32 mean is some ulps off, and its output 5e-5 from the kernels',
+    which hold the plain version's float64 sums: test_bn_kernels_match_
+    plain); a bfloat16 input, eval mode and S = 1 take the composed
+    path."""
+    from armnet_tpu_torch.ops.layers import (BatchNorm, batch_mask_scope,
+                                             bn_route)
+    from armnet_tpu_torch.utils import tracing
+    from chip_smoke import within
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(shape, generator=g, device=cuda) * 2 + 0.5
+    dy = torch.randn(shape, generator=g, device=cuda)
+    gamma = torch.rand(shape[axis], generator=g, device=cuda) + 0.5
+    mask = torch.ones(shape[0], device=cuda)
+    mask[-7:] = 0.0
+    runs = []
+    for route in ("fused", "composed"):
+        bn = BatchNorm(shape[axis], axis, device=cuda).train()
+        with torch.no_grad():
+            bn.weight.copy_(gamma)
+        leaf = x.clone().requires_grad_()
+        before = (bn_cuda.LAUNCHES, bn_cuda.BWD_LAUNCHES)
+        with tracing.recording() as rec, batch_mask_scope(mask):
+            y = bn(leaf) if route == "fused" else bn._composed(
+                leaf, axis, mask)
+        (y * dy).sum().backward()
+        launched = (bn_cuda.LAUNCHES - before[0],
+                    bn_cuda.BWD_LAUNCHES - before[1])
+        if route == "fused":
+            assert dict(rec.counters) == {"armnet.bn.fused": 1}
+            assert launched == (bn_cuda.FWD_CALL_LAUNCHES,
+                                bn_cuda.BWD_CALL_LAUNCHES)
+        else:
+            assert launched == (0, 0)
+        runs.append((y.detach(), bn.running_mean.clone(),
+                     bn.running_var.clone(), leaf.grad, bn.weight.grad,
+                     bn.bias.grad))
+    for a, b in zip(*runs):
+        assert within(a - b, b, 1e-5, 0.0), float((a - b).norm() / b.norm())
+    assert bn_route(True, x.bfloat16(), axis) == "composed"
+    assert bn_route(False, x, axis) == "composed"
+    assert bn_route(True, x.flatten(2)[:, :, 0], axis) == "composed"
+    bn = BatchNorm(shape[axis], axis, device=cuda)
+    with tracing.recording() as rec:
+        bn.eval()(x)
+        bn.train()(x.bfloat16())
+        BatchNorm(shape[-1], -1, device=cuda).train()(x)
+    assert dict(rec.counters) == {"armnet.bn.composed": 3}
+
+
+def test_bn_one_rank_group(cuda, tmp_path):
+    """With a one-process NCCL group the kernels' channel sums go through
+    the group's all-reduce: the same output, running statistics and
+    gradients as without a group."""
+    import torch.distributed as dist
+
+    from armnet_tpu_torch.ops.layers import BatchNorm, batch_mask_scope
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((2048, 64, 10), generator=g, device=cuda)
+    dy = torch.randn((2048, 64, 10), generator=g, device=cuda)
+    mask = torch.ones(2048, device=cuda)
+    mask[2000:] = 0.0
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1)
+    try:
+        group = dist.new_group([0])
+        runs = []
+        for grp in (None, group):
+            bn = BatchNorm(64, 1, device=cuda).train()
+            leaf = x.clone().requires_grad_()
+            with batch_mask_scope(mask, grp):
+                y = bn(leaf)
+            (y * dy).sum().backward()
+            runs.append((y.detach(), bn.running_mean, bn.running_var,
+                         leaf.grad, bn.weight.grad, bn.bias.grad))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

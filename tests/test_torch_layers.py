@@ -123,7 +123,7 @@ def _bn_train_pair(x, axis, mask=None, seed=4):
             np.asarray(yj), (np.asarray(st["mean"]), np.asarray(st["var"])))
 
 
-def test_batchnorm_train_mode_is_not_ported():
+def test_batchnorm_train_mode_matches_jax():
     """Train mode is ported: unmasked batch statistics (biased variance to
     normalize, the unbiased one into the running average, momentum 0.1)
     match the JAX BatchNorm in train mode."""

@@ -424,3 +424,49 @@ def test_sharded_trainer_learns(runs):
             assert r[exchange]["sharded"] == ["embedding.weight"]
             assert r[exchange]["best_valid"] > 0.95, r[exchange]
     assert len({r["psum"]["best_valid"] for r in res}) == 1
+
+
+# --- BatchNorm on the kernels' route ----------------------------------------
+
+def bn_args():
+    rng = np.random.RandomState(8)
+    x = (rng.randn(16, 6, 10) * 2 + 0.5).astype(np.float32)
+    mask = np.ones(16, np.float32)
+    mask[[5, 13, 14, 15]] = 0.0                  # pad rows on both ranks
+    x[mask == 0] = 50.0
+    state = {"weight": torch.from_numpy(rng.uniform(0.5, 1.5, 6).astype(
+                 np.float32)),
+             "bias": torch.from_numpy(rng.normal(0, 0.1, 6).astype(
+                 np.float32)),
+             "running_mean": torch.zeros(6), "running_var": torch.ones(6)}
+    return {"x": torch.from_numpy(x), "mask": torch.from_numpy(mask),
+            "dy": torch.from_numpy(rng.randn(16, 6, 10).astype(np.float32)),
+            "axis": 1, "state": state}
+
+
+def test_bn_kernel_route_takes_the_groups_statistics(runs):
+    """The kernels' route (their plain versions on the CPU) in two data
+    ranks: the channel sums all-reduced over the data group give the
+    composed BatchNorm's output, input gradient and running statistics
+    over the whole batch in one process, and the ranks' weight and bias
+    gradients sum to its."""
+    from armnet_tpu_torch.ops.layers import BatchNorm, batch_mask_scope
+
+    args, res = runs("bn", "data:2", 2, bn_args)
+    bn = BatchNorm(6, 1).train()
+    bn.load_state_dict(args["state"])
+    x = args["x"].clone().requires_grad_()
+    with batch_mask_scope(args["mask"]):
+        y = bn(x)
+    (y * args["dy"]).sum().backward()
+    got = {k: torch.cat([r[k] for r in res]) for k in ("y", "dx")}
+    got.update({k: res[0][k] + res[1][k] for k in ("dweight", "dbias")})
+    want = {"y": y.detach(), "dx": x.grad, "dweight": bn.weight.grad,
+            "dbias": bn.bias.grad}
+    for k, ref in want.items():
+        torch.testing.assert_close(got[k], ref, rtol=1e-5, atol=1e-5)
+    for r in res:
+        torch.testing.assert_close(r["running_mean"], bn.running_mean,
+                                   rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(r["running_var"], bn.running_var,
+                                   rtol=1e-6, atol=1e-7)

@@ -175,8 +175,30 @@ def case_loaders(a, mesh):
             "epochs": [list(it) for it in loaders]}
 
 
+def case_bn(a, mesh):
+    """A train-mode BatchNorm on the route of the card's kernels, their
+    plain versions in their place, over this data rank's rows under the
+    data group's masked statistics: output, input gradient, the rank's
+    weight and bias gradients and the running statistics."""
+    from armnet_tpu_torch.kernels import bn_cuda
+    from armnet_tpu_torch.ops import layers
+
+    layers.bn_route = lambda training, x, ch: "fused"
+    bn_cuda.bn_fwd, bn_cuda.bn_bwd = bn_cuda.bn_fwd_plain, bn_cuda.bn_bwd_plain
+    x, dy, mask = (local_rows(a[k], mesh) for k in ("x", "dy", "mask"))
+    bn = layers.BatchNorm(x.shape[a["axis"]], a["axis"]).train()
+    bn.load_state_dict(a["state"])
+    x = x.clone().requires_grad_()
+    with layers.batch_mask_scope(mask, mesh.data_group):
+        y = bn(x)
+    (y * dy).sum().backward()
+    return {"y": y.detach(), "dx": x.grad, "dweight": bn.weight.grad,
+            "dbias": bn.bias.grad, "running_mean": bn.running_mean,
+            "running_var": bn.running_var}
+
+
 CASES = {"lookup": case_lookup, "step": case_step, "cli": case_cli,
-         "learns": case_learns, "loaders": case_loaders}
+         "learns": case_learns, "loaders": case_loaders, "bn": case_bn}
 
 
 def main():
