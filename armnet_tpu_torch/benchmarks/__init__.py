@@ -5,7 +5,7 @@ python -m armnet_tpu_torch.benchmarks.<name>, on the card unless given
 
   timing          the shared helpers: the bench batch and its shifted ids,
                   wall time of warm steps between two syncs, the profiled
-                  repetition (device ms and kernel launches per step), the
+                  repetition (device ms and kernel calls per step), the
                   card's name, power limit and clocks, the stage runner of
                   the breakdowns below
   step_breakdown  nested subsets of the train step, host wall beside

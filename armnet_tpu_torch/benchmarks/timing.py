@@ -13,8 +13,10 @@ On the CPU (the tests) there is no sync and nothing of the card is read.
 
 One more repetition, never one of the timed ones, runs under torch.profiler
 (kernels/bench.device_events, which retries a session that recorded no
-device event): the device ms per step, and the launches per step of each
-of the port's kernels, from the counts their wrappers keep.
+device event): the device ms per step, and the calls per step of each of
+the port's kernel wrappers, from the ledger of what ran on the card
+(utils/tracing's `armnet.kernel.*` counters, which kernels/build.launch
+adds to).
 """
 
 import json
@@ -26,12 +28,12 @@ import time
 import numpy as np
 import torch
 
-from armnet_tpu_torch.kernels import (arm_cuda, bn_cuda, cin_cuda,
-                                      entmax_cuda, scatter_cuda)
 from armnet_tpu_torch.kernels.bench import device_events
+from armnet_tpu_torch.kernels.build import KERNEL_CALLS, KERNEL_COUNTER
+from armnet_tpu_torch.utils.tracing import counts
 
 __all__ = ["KERNEL_CHOICES", "add_timing_args", "bench_batch", "shift_ids",
-           "time_steps", "summary", "zero_launch_counts", "launch_counts",
+           "time_steps", "summary", "kernel_calls",
            "profile_steps", "card", "measure", "parse_only", "run_stages"]
 
 # the kernel choices the harness times: the per-op kernels and the fused
@@ -104,42 +106,30 @@ def summary(times):
             "max": max(times)}
 
 
-def zero_launch_counts():
-    """Set the launch count of every kernel wrapper of the port to 0."""
-    entmax_cuda.LAUNCHES = entmax_cuda.BWD_LAUNCHES = scatter_cuda.LAUNCHES = 0
-    arm_cuda.LAUNCHES = arm_cuda.BWD_LAUNCHES = 0
-    cin_cuda.LAUNCHES = cin_cuda.BWD_LAUNCHES = 0
-    bn_cuda.LAUNCHES = bn_cuda.BWD_LAUNCHES = 0
-
-
-def launch_counts():
-    """{kernel: launches since the counts were last set to 0}: K1/K2
-    entmax_fwd, K3/K4 entmax_bwd, K7 table_grad, K5 arm1h_fwd, K6
-    arm1h_bwd, K8 cin_fwd and cin_bwd, K9 bn_fwd and bn_bwd."""
-    return {"entmax_fwd": entmax_cuda.LAUNCHES,
-            "entmax_bwd": entmax_cuda.BWD_LAUNCHES,
-            "table_grad": scatter_cuda.LAUNCHES,
-            "arm1h_fwd": arm_cuda.LAUNCHES,
-            "arm1h_bwd": arm_cuda.BWD_LAUNCHES,
-            "cin_fwd": cin_cuda.LAUNCHES,
-            "cin_bwd": cin_cuda.BWD_LAUNCHES,
-            "bn_fwd": bn_cuda.LAUNCHES,
-            "bn_bwd": bn_cuda.BWD_LAUNCHES}
+def kernel_calls(since=None):
+    """{kernel: calls of its wrapper} for each of build.KERNEL_CALLS, from
+    the ledger: the process's calls so far, less `since` (an earlier return
+    of this function) where given. A call counts once, whatever kernels it
+    launches."""
+    now = counts(KERNEL_COUNTER)
+    since = since or {}
+    return {k: now.get(KERNEL_COUNTER + k, 0) - since.get(k, 0)
+            for k in KERNEL_CALLS}
 
 
 def profile_steps(step_fn, n, device):
-    """(device ms per step or None, {kernel: launches per step}) of n calls
-    of step_fn(): the device time from a torch.profiler session on the card
+    """(device ms per step or None, {kernel: calls per step}) of n calls of
+    step_fn(): the device time from a torch.profiler session on the card
     (None where no session recorded a device event, and on the CPU, where
-    no kernel launches), the launches from the wrappers' counts, set to 0
-    just before the n calls and read just after."""
+    no kernel launches), the calls from the ledger, read just before the n
+    calls and just after."""
     def run():
         _sync(device)
-        zero_launch_counts()
+        before = kernel_calls()
         for _ in range(n):
             step_fn()
         _sync(device)
-        return launch_counts()
+        return kernel_calls(before)
 
     if torch.device(device).type == "cuda":
         events, counts = device_events(run)
@@ -166,7 +156,9 @@ def measure(step_fn, device, warm, steps, reps, profiled=PROFILE_STEPS):
     the profiled repetition of `profiled` calls. idle_share is 1 less
     the profiled device ms per step over the timed median wall ms per
     step: the share of the wall in which the device has no work. `seconds`
-    is the wall of each part."""
+    is the wall of each part. `launches` (the records' key) is the calls
+    of each kernel wrapper per profiled step, from the ledger; the kernels
+    a call launches on the device are the device trace's."""
     cuda = torch.device(device).type == "cuda"
     t0 = time.perf_counter()
     for _ in range(warm):
@@ -179,13 +171,13 @@ def measure(step_fn, device, warm, steps, reps, profiled=PROFILE_STEPS):
     t3 = time.perf_counter()
     after = card() if cuda else None
     t4 = time.perf_counter()
-    device_ms, launches = profile_steps(step_fn, profiled, device)
+    device_ms, calls = profile_steps(step_fn, profiled, device)
     step_ms = summary(times)
     return {"times_ms": times, "step_ms": step_ms,
             "device_ms_per_step": device_ms,
             "idle_share": (None if device_ms is None
                            else 1.0 - device_ms / step_ms["median"]),
-            "launches": launches, "card": {"before": before, "after": after},
+            "launches": calls, "card": {"before": before, "after": after},
             "seconds": {"warm": t1 - t0, "card": t2 - t1 + t4 - t3,
                         "timed": t3 - t2,
                         "profiled": time.perf_counter() - t4}}

@@ -38,14 +38,8 @@ from armnet_tpu_torch.kernels.entmax_cuda import g_mode_id, mode_id
 
 __all__ = ["arm1h_fwd_kernel", "arm1h_fwd_plain", "arm1h_bwd_kernel",
            "arm1h_bwd_plain", "fwd_smem_bytes", "fwd_blocks_per_sm",
-           "bwd_blocks_per_sm", "bwd_grid", "LAUNCHES", "BWD_LAUNCHES",
-           "REGISTER_F"]
+           "bwd_blocks_per_sm", "bwd_grid", "REGISTER_F"]
 
-# kernel launches since the count was last set to 0 (the one place that
-# adds to LAUNCHES is arm1h_fwd_kernel, to BWD_LAUNCHES arm1h_bwd_kernel,
-# each right after a successful launch)
-LAUNCHES = 0
-BWD_LAUNCHES = 0
 REGISTER_F = 40            # largest register bucket; past it the column
                            # lives in shared memory (csrc kMaxF)
 NARROW_ED = 16             # E and dk of K6's narrow builds (csrc kMaxED)
@@ -228,8 +222,8 @@ def bwd_grid(b, f, e, dk, o, alpha, device):
 def arm1h_fwd_kernel(emb, wk, q, vt, alpha, n_iter=50):
     """The fused ARM-1h forward on the card, on the current stream:
     contiguous CUDA float32 emb [B, F, E], wk [E, dk], q [O, dk],
-    vt [F, O] -> [B, O, E]. Raises on what the kernel does not take."""
-    global LAUNCHES
+    vt [F, O] -> [B, O, E]. Raises on what the kernel does not take.
+    Counted in the ledger as armnet.kernel.arm1h_fwd (build.launch)."""
     alpha = float(alpha)
     b, f, e, dk, o = _check("arm1h_fwd_kernel", emb, wk, q, vt, alpha)
     _smem_check("arm1h_fwd_kernel", fwd_smem_bytes(f, e, dk, o))
@@ -237,18 +231,12 @@ def arm1h_fwd_kernel(emb, wk, q, vt, alpha, n_iter=50):
     if b == 0:
         return out
     mode, steps, am1, inv_am1, c_hi = _solver_args(alpha, f, n_iter)
-    fn = build.function(
-        _fwd_source(f), "armnet_arm1h_fwd",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-        + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-    with torch.cuda.device(emb.device):
-        err = fn(emb.data_ptr(), wk.data_ptr(), q.data_ptr(), vt.data_ptr(),
-                 out.data_ptr(), b, f, e, dk, o, mode, steps, dk ** -0.5,
-                 am1, inv_am1, c_hi, build.raw_stream(emb.device))
-    if err != 0:
-        raise RuntimeError(f"arm1h forward kernel launch failed: cudaError "
-                           f"{err}")
-    LAUNCHES += 1
+    build.launch(_fwd_source(f), "armnet_arm1h_fwd",
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                 + [ctypes.c_float] * 4 + [ctypes.c_void_p], emb.device,
+                 emb.data_ptr(), wk.data_ptr(), q.data_ptr(), vt.data_ptr(),
+                 out.data_ptr(), b, f, e, dk, o, mode, steps, dk ** -0.5, am1,
+                 inv_am1, c_hi, call="arm1h_fwd")
     return out
 
 
@@ -258,8 +246,8 @@ def arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha, n_iter=50):
     dwk [E, dk], dq [O, dk], dvt [F, O]). The batch sums are deterministic:
     a persistent grid (bwd_grid) whose blocks each sum their rows, the
     blocks' sums then added in block order. Raises on what the kernel does
-    not take."""
-    global BWD_LAUNCHES
+    not take. Counted in the ledger as armnet.kernel.arm1h_bwd
+    (build.launch)."""
     alpha = float(alpha)
     b, f, e, dk, o = _check("arm1h_bwd_kernel", emb, wk, q, vt, alpha, dout)
     dev = emb.device
@@ -277,18 +265,12 @@ def arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha, n_iter=50):
     partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32,
                           device=dev)
     mode, steps, am1, inv_am1, c_hi = _solver_args(alpha, f, n_iter)
-    fn = build.function(
-        _bwd_source(alpha, f, e, dk), "armnet_arm1h_bwd",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-        + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        err = fn(emb.data_ptr(), dout.data_ptr(), wk.data_ptr(),
-                 q.data_ptr(), vt.data_ptr(), de.data_ptr(),
-                 partial.data_ptr(), grads.data_ptr(), b, f, e, dk, o,
-                 blocks, mode, g_mode_id(alpha), steps, dk ** -0.5, am1,
-                 inv_am1, c_hi, 2.0 - alpha, build.raw_stream(dev))
-    if err != 0:
-        raise RuntimeError(f"arm1h backward kernel launch failed: cudaError "
-                           f"{err}")
-    BWD_LAUNCHES += 1
+    build.launch(_bwd_source(alpha, f, e, dk), "armnet_arm1h_bwd",
+                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                 + [ctypes.c_float] * 5 + [ctypes.c_void_p], dev,
+                 emb.data_ptr(), dout.data_ptr(), wk.data_ptr(), q.data_ptr(),
+                 vt.data_ptr(), de.data_ptr(), partial.data_ptr(),
+                 grads.data_ptr(), b, f, e, dk, o, blocks, mode,
+                 g_mode_id(alpha), steps, dk ** -0.5, am1, inv_am1, c_hi,
+                 2.0 - alpha, call="arm1h_bwd")
     return de, dwk, dq, dvt

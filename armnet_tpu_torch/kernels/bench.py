@@ -1,20 +1,20 @@
-"""Kernel measurements on one GPU: the entmax forward (K1/K2) at the serving
-shapes and every alpha, the entmax backward (K3/K4) at the serving shapes,
-the Diabetes130 step and columns past the forward's register buckets,
-every alpha, beside its bound, with its registers, spills and blocks per
-SM; both at ENTMAX_STEPS (the last axis of mh_breakdown's gates and the
-multi-head presets' gates) beside the bound and the plain version, and
-there on every route their C entries take (`entmax_routes`); the table
-gradient (K7) on a Criteo batch with
-uniform and Zipf-skewed ids and all ids equal (and on the uniform batch at
-the zoo's widths E = 1 and 20), split into its sort and its
-fill and segmented sums beside the PyTorch route it replaced and
-`zeros + index_add_`, the fused ARM-1h forward and backward (K5/K6) at the
-Criteo and Frappe steps (and Frappe at nemb 100) and every alpha beside
-the composed path and the bound, K6 split into its kernels, the CIN layer
-(K8) at the xdfm_criteo step, BatchNorm's train-mode kernels (K9) at the
-cells' BatchNorms beside the plain version and the composed path, and the
-registers and spills that ptxas reports.
+"""Kernel measurements on one GPU: the entmax forward (K1/K2) and backward
+(K3/K4) at the serving shapes, the Diabetes130 step and columns past the
+forward's register buckets, every alpha, beside their bounds, with the
+backward's registers, spills and blocks per SM; both at ENTMAX_STEPS (the
+last axis of mh_breakdown's gates and the multi-head presets' gates)
+beside the bound and the plain version, and there on every route their C
+entries take (`entmax_routes`); the table gradient (K7) on a Criteo batch
+with uniform and Zipf-skewed ids and all ids equal (and on the uniform
+batch at the zoo's widths E = 1 and 20) and on the UCI step, split into
+its sort and its fill and segmented sums beside the PyTorch route it
+replaced, `zeros + index_add_` and the bound, the fused ARM-1h forward and
+backward (K5/K6) at the Criteo, Frappe, Diabetes130 and UCI steps (and
+Frappe at nemb 100) and every alpha beside the composed path and the
+bound, K6 split into its kernels, the CIN layer (K8) at the xdfm_criteo
+step, BatchNorm's train-mode kernels (K9) at the cells' BatchNorms beside
+the plain version and the composed path, and the registers and spills
+that ptxas reports.
 
     python -m armnet_tpu_torch.kernels.bench [--out FILE] [SECTION ...]
 
@@ -56,26 +56,31 @@ DIABETES_SHAPE = (1024, 43, 128)
 # (name, the (outer, d, inner) view, alpha) of the entmax kernels' steps
 # where inner is small or wide: the last axis of mh_breakdown's gates [4096,
 # 4, 64, 39] (K1/K3), the gates [B, F, nattn_head x h] of the multi-head
-# presets (utils/presets.py, batch 4096 but db_armnet's 1024) and the
-# armnet_1h gates [4096, 39, 128] (K2/K4)
+# presets (utils/presets.py, batch 4096 but db_armnet's 1024; the UCI
+# armnet step: 4 heads of 128 over 16 fields, batch 512) and the armnet_1h
+# gates [4096, 39, 128] (K2/K4)
 ENTMAX_STEPS = (("last_axis", (4096 * 4 * 64, 39, 1), 2.0),
                 ("db_armnet", (1024, 43, 32), 1.7),
+                ("uci_armnet", (512, 16, 512), 1.7),
                 ("av_armnet", (4096, 22, 32), 1.5),
                 ("av_armnet+", (4096, 22, 64), 2.0),
                 ("frappe_armnet+", (4096, 10, 16), 1.5),
                 ("ml_armnet+", (4096, 3, 8), 2.5),
                 ("cr_armnet", (4096, 39, 256), 2.0),
                 ("armnet_1h", CRITEO_SHAPE, 2.0))
-# the entmax backward's timed shapes: the steps, then columns past the
-# forward's register buckets
-ENTMAX_BWD_SHAPES = (CRITEO_SHAPE, FRAPPE_SHAPE, DIABETES_SHAPE,
-                     (512, 100, 128), (128, 300, 128))
+# the entmax kernels' shapes timed at every alpha: the steps, then columns
+# past the forward's register buckets
+ENTMAX_SHAPES = (CRITEO_SHAPE, FRAPPE_SHAPE, DIABETES_SHAPE,
+                 (512, 100, 128), (128, 300, 128))
 # (B, F, E, dk, O) of the fused ARM-1h kernels at the cr_armnet1h and
 # frappe_armnet1h steps
 CRITEO_ARM = (4096, 39, 10, 10, 128)
 FRAPPE_ARM = (4096, 10, 10, 10, 128)
 # the db_armnet1h step: past the 40-field register bucket
 DIABETES_ARM = (1024, 43, 10, 10, 128)
+# the armnet_1h step on the UCI letter geometry (batch 512, 16 fields,
+# alpha 1.7)
+UCI_ARM = (512, 16, 10, 10, 128)
 # the ARM-Net reference's Frappe embedding sweep at its best AUC (armnet_1h
 # --nemb 100 --h 10 --alpha 1.7, BASELINE.md): embeddings wider than K6's
 # 16-wide register sums
@@ -107,6 +112,17 @@ ZOO_WIDTHS = (1, 20)
 HOLD_CYCLES = 2_000_000   # ~1 ms of the card's clock: longer than any enqueue
 PROFILE_TRIES = 3
 EMPTY_SESSIONS = 0        # profiler sessions that recorded no device event
+# the kernels against their plain versions inside one train step on the
+# card (the smoke and tests/test_torch_cuda.py): the loss and each clamped
+# gradient, norm-wise (largest gradient gap read 8.4e-7 over every phase of
+# the smoke, the loss 0)
+KERNELS_VS_PLAIN_RTOL = 1e-5
+
+
+def within(delta, ref, rtol, atol=1e-6):
+    """||delta|| <= atol * sqrt(numel) + rtol * ||ref|| (2-norms)."""
+    return float(delta.norm()) <= (atol * delta.numel() ** 0.5
+                                   + rtol * float(ref.norm()))
 
 
 def _event_ms(fn, reps, warmup, hold):
@@ -332,36 +348,48 @@ def table_grad_split(gr, ids, nrows):
 
 
 def bench_table_grad():
+    """K7 (table_grad_split) on table_grad_cases at E 10, on the Criteo
+    batch at ZOO_WIDTHS, and on the UCI step (batch 512 of 16 fields: 16
+    live rows of the 5,500-row table, 512 updates each), beside its bound:
+    g read once, the ids once, the dense output written once, one add an
+    update element."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    nrows = CRITEO_NFEAT
     cases = table_grad_cases()
-    runs = [(name, ids, 10) for name, ids in cases.items()]
-    runs += [("criteo_batch", cases["criteo_batch"], e) for e in ZOO_WIDTHS]
-    for name, ids, e in runs:
+    runs = [(name, ids, 10, CRITEO_NFEAT) for name, ids in cases.items()]
+    runs += [("criteo_batch", cases["criteo_batch"], e, CRITEO_NFEAT)
+             for e in ZOO_WIDTHS]
+    runs.append(("uci_16_live", torch.arange(
+        16, dtype=torch.int32, device="cuda").repeat(512), 10, 5500))
+    for name, ids, e, nrows in runs:
         gr = torch.randn((ids.numel(), e), generator=g, device="cuda")
+        bound_ms, by = bound(4 * nrows * e + 4 * gr.numel()
+                             + ids.element_size() * ids.numel(), gr.numel())
         yield {"table_grad": name, "n": ids.numel(), "e": e, "nrows": nrows,
-               **table_grad_split(gr, ids, nrows)}
+               **table_grad_split(gr, ids, nrows), "bound_ms": bound_ms,
+               "bound_by": by}
 
 
 def bench_entmax():
-    """K1/K2 at the Criteo and Frappe serving shapes at every alpha, then at
+    """K1/K2 at ENTMAX_SHAPES and every alpha beside the bound, then at
     ENTMAX_STEPS beside the bound and the plain version: device and
     host-inclusive ms, the route and its blocks per SM, the max abs
     difference from the plain version."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    for shape in (CRITEO_SHAPE, FRAPPE_SHAPE):
+    for shape in ENTMAX_SHAPES:
         x = torch.randn(shape, generator=g, device="cuda") * 3.0
         for alpha in ALPHAS:
             err = float((entmax_cuda.entmax_kernel(x, alpha, 1)
                          - entmax_cuda.entmax_plain(x, alpha, 1)).abs().max())
+
             def call():
                 return entmax_cuda.entmax_kernel(x, alpha, 1)
 
+            bound_ms, by = entmax_bound_ms(shape, alpha)
             yield {"entmax_fwd": list(shape), "alpha": alpha,
                    "route": entmax_cuda.route_for(shape[1], shape[2],
                                                   shape[0], alpha),
                    "ms": time_ms(call), "host_incl_ms": host_incl_ms(call),
-                   "max_abs_err": err}
+                   "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
     for name, shape, alpha in ENTMAX_STEPS:
         outer, d, inner = shape
         x = torch.randn(shape, generator=g, device="cuda") * 3.0
@@ -384,14 +412,14 @@ def bench_entmax():
 
 
 def bench_entmax_bwd():
-    """K3/K4 at ENTMAX_BWD_SHAPES and every alpha, then at ENTMAX_STEPS
+    """K3/K4 at ENTMAX_SHAPES and every alpha, then at ENTMAX_STEPS
     beside the plain version, y from the forward kernel: device and
     host-inclusive ms, the bound, the max abs difference from the plain
     version, the route and its blocks per SM; first the registers and
     spills of its instantiations."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     yield {"entmax_bwd_ptxas": ptxas_report(build.build_log("entmax_bwd"))}
-    steps = [(list(shape), shape, alpha) for shape in ENTMAX_BWD_SHAPES
+    steps = [(list(shape), shape, alpha) for shape in ENTMAX_SHAPES
              for alpha in ALPHAS] + list(ENTMAX_STEPS)
     for name, shape, alpha in steps:
         d, inner = shape[1], shape[2]
@@ -424,28 +452,24 @@ def bench_entmax_bwd():
 def fwd_on_route(x, alpha, route):
     """y = the forward kernel over axis 1 of the contiguous 3-D CUDA tensor
     x on `route` (any route its C entries take there, not only route_for's;
-    no launch is counted)."""
+    no call is counted in the ledger)."""
     outer, d, inner = x.shape
     y = torch.empty_like(x)
-    fn = entmax_cuda.fwd_function(alpha, route)
-    if fn(*entmax_cuda.fwd_args(x, y, alpha, outer, d, inner, route)) != 0:
-        raise RuntimeError(f"entmax forward on {route} refused")
+    build.launch(*entmax_cuda.fwd_entry(alpha, route), x.device,
+                 *entmax_cuda.fwd_args(x, y, alpha, outer, d, inner, route))
     return y
 
 
 def bwd_on_route(y, dy, alpha, per_block):
     """dx = the backward kernel over axis 1 of contiguous 3-D CUDA tensors
-    with `per_block` outer indices a block (0: the staged route; no launch
-    is counted)."""
+    with `per_block` outer indices a block (0: the staged route; no call is
+    counted in the ledger)."""
     outer, d, inner = y.shape
     dx = torch.empty_like(y)
-    fn = build.function("entmax_bwd", "armnet_entmax_bwd",
-                        entmax_cuda.BWD_ARGTYPES)
-    if fn(y.data_ptr(), dy.data_ptr(), dx.data_ptr(), outer, d, inner,
-          per_block, entmax_cuda.g_mode_id(alpha), 2.0 - alpha,
-          build.raw_stream(y.device)) != 0:
-        raise RuntimeError(f"entmax backward at per_block {per_block} "
-                           f"refused")
+    build.launch("entmax_bwd", "armnet_entmax_bwd", entmax_cuda.BWD_ARGTYPES,
+                 y.device, y.data_ptr(), dy.data_ptr(), dx.data_ptr(), outer,
+                 d, inner, per_block, entmax_cuda.g_mode_id(alpha),
+                 2.0 - alpha)
     return dx
 
 
@@ -589,12 +613,13 @@ def arm_times(shape, alpha, g, composed, split=True):
 
 def bench_arm(composed):
     """K5/K6 records (arm_times) at the Criteo and Frappe steps, Frappe at
-    nemb 100 and the Diabetes130 step (43 fields: the columns in shared
-    memory), at every alpha, after the registers and spills of their
-    40-field bucket and of the shared-memory route; `composed` is the
-    interaction they are timed beside (arm_times). K6's profiler split is
-    taken at the first three steps only: one process that opened more
-    torch.profiler sessions saw the last of them return no events."""
+    nemb 100, the Diabetes130 step (43 fields: the columns in shared
+    memory) and the UCI step, at every alpha, after the registers and
+    spills of their 40-field bucket and of the shared-memory route;
+    `composed` is the interaction they are timed beside (arm_times). K6's
+    profiler split is taken at the first three steps only: one process
+    that opened more torch.profiler sessions saw the last of them return
+    no events."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     ptxas = {}
     for n in (n for n in build.sources() if n.startswith("arm1h")):
@@ -604,10 +629,11 @@ def bench_arm(composed):
     yield {"arm_ptxas": ptxas}
     for name, shape in (("criteo", CRITEO_ARM), ("frappe", FRAPPE_ARM),
                         ("frappe_nemb100", FRAPPE_NEMB100_ARM),
-                        ("diabetes", DIABETES_ARM)):
+                        ("diabetes", DIABETES_ARM), ("uci", UCI_ARM)):
         for alpha in ALPHAS:
             for kind, rec in arm_times(shape, alpha, g, composed,
-                                       name != "diabetes").items():
+                                       name not in ("diabetes",
+                                                    "uci")).items():
                 yield {f"arm1h_{kind}": name,
                        "shape": dict(zip("BFEDO", shape)), "alpha": alpha,
                        **rec}
@@ -641,9 +667,9 @@ def _blocked_route(x0, xk, w, dout):
 
 def bench_cin():
     """K8 at CIN_LAYERS: the fused forward and backward (device and
-    host-inclusive ms, launches a call, achieved TFLOP/s), the bound, the
-    plain version on PLAIN_CIN_ROWS rows and the blocked route on all,
-    with TF32 off; the kernels' registers and spills first."""
+    host-inclusive ms, achieved TFLOP/s, each kernel's device ms), the
+    bound, the plain version on PLAIN_CIN_ROWS rows and the blocked route
+    on all, with TF32 off; the kernels' registers and spills first."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     yield {"cin_ptxas": ptxas_report(build.build_log("cin"))}
@@ -662,16 +688,12 @@ def bench_cin():
                         dout[:PLAIN_CIN_ROWS]), blocked_bwd)}
         bounds = cin_bounds(shape)
         for kind, (kernel, plain, blocked) in calls.items():
-            before = (cin_cuda.LAUNCHES, cin_cuda.BWD_LAUNCHES)
-            kernel()
-            launches = (cin_cuda.LAUNCHES + cin_cuda.BWD_LAUNCHES
-                        - sum(before))
             dev = time_ms(kernel, reps=5, warmup=1)
             bms, by, nbytes, nops = bounds[kind]
             yield {f"cin_{kind}": dict(zip("BEFCN", shape)),
                    "time_ms": dev,
                    "host_incl_ms": host_incl_ms(kernel, reps=5, warmup=1),
-                   "launches": launches, "bound_ms": bms, "bound_by": by,
+                   "bound_ms": bms, "bound_by": by,
                    "tflops": 2 * nops / dev / 1e9,
                    "roofline_pct": 100 * bms / dev,
                    "plain_ms": time_ms(plain, reps=3, warmup=1),
@@ -700,9 +722,10 @@ def bn_inputs(g, shape):
 
 def bench_bn():
     """K9 at BN_SHAPES, masked as the trainer calls it: the forward and the
-    backward (device and host-inclusive ms, launches a call, GB/s of the
-    bytes the bound counts and of the design's: x read three times and y
-    written (forward), x and dy read twice and dx written (backward)),
+    backward (device and host-inclusive ms, each kernel's device ms, GB/s
+    of the bytes the bound counts and of the design's: x read three times
+    and y written (forward), x and dy read twice and dx written
+    (backward)),
     the bound, the plain version, the composed path (the module's PyTorch
     ops, forward and autograd's backward) and the library (F.batch_norm in
     training mode, cuDNN: the same function where every row is real, as
@@ -753,8 +776,6 @@ def bench_bn():
             design = (4 if kind == "fwd" else 5) * tensor
             yield {f"bn_{kind}": name, "shape": dict(zip("NCS", shape)),
                    "time_ms": dev, "host_incl_ms": host_incl_ms(kernel),
-                   "launches": (bn_cuda.FWD_CALL_LAUNCHES if kind == "fwd"
-                                else bn_cuda.BWD_CALL_LAUNCHES),
                    "bound_ms": bms, "bound_by": by,
                    "roofline_pct": 100 * bms / dev,
                    "bound_gb_per_s": nbytes / dev / 1e6,
@@ -767,17 +788,24 @@ def bench_bn():
         torch.cuda.empty_cache()
 
 
+def sections(composed_arm):
+    """{section: a generator function of its records}, in the order main
+    runs them; `composed_arm` is the interaction that the arm section times
+    K5/K6 beside."""
+    return {"entmax": bench_entmax, "entmax_bwd": bench_entmax_bwd,
+            "entmax_routes": bench_entmax_routes,
+            "table_grad": bench_table_grad,
+            "arm": lambda: bench_arm(composed_arm), "cin": bench_cin,
+            "bn": bench_bn}
+
+
 def main(composed_arm, argv=None):
     """Runs the named sections; `composed_arm` is the interaction that the
     arm section times K5/K6 beside."""
-    sections = {"entmax": bench_entmax, "entmax_bwd": bench_entmax_bwd,
-                "entmax_routes": bench_entmax_routes,
-                "table_grad": bench_table_grad,
-                "arm": lambda: bench_arm(composed_arm), "cin": bench_cin,
-                "bn": bench_bn}
+    named = sections(composed_arm)
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out")
-    p.add_argument("sections", nargs="*", choices=list(sections),
+    p.add_argument("sections", nargs="*", choices=list(named),
                    help="what to measure (default: all)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -800,8 +828,8 @@ def main(composed_arm, argv=None):
     emit({"build_s": build.build_all()})
     emit({"ptxas": {n: ptxas_report(build.build_log(n))
                     for n in build.sources()}})
-    for section in args.sections or sections:
-        for rec in sections[section]():
+    for section in args.sections or named:
+        for rec in named[section]():
             emit(rec)
     if out:
         out.close()

@@ -32,17 +32,8 @@ import torch
 from armnet_tpu_torch.kernels import build
 from armnet_tpu_torch.parallel.mesh import all_reduce_sum
 
-__all__ = ["bn_fwd", "bn_bwd", "bn_fwd_plain", "bn_bwd_plain", "LAUNCHES",
-           "BWD_LAUNCHES", "FWD_CALL_LAUNCHES", "BWD_CALL_LAUNCHES"]
+__all__ = ["bn_fwd", "bn_bwd", "bn_fwd_plain", "bn_bwd_plain"]
 
-# kernel launches since the count was last set to 0 (each after a
-# successful call): a forward launches the mean's and the squares' sums and
-# folds, the statistics and the output; a backward the two sums, their
-# fold and dx
-FWD_CALL_LAUNCHES = 6
-BWD_CALL_LAUNCHES = 3
-LAUNCHES = 0
-BWD_LAUNCHES = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -131,87 +122,74 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(who, err):
-    if err != 0:
-        raise RuntimeError(f"{who} kernel launch failed: cudaError {err}")
-
-
 def _sums(mode, x3, dy3, rows, count, spatial, sx, mean, rstd, dgamma,
           dbeta, out):
     n, c, s = x3.shape
     nbytes = build.function("batch_norm", "armnet_bn_scratch_bytes",
                             [_L, _I, _I, _I], _L)(n, c, s, out.shape[0])
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x3.device)
-    _launch("bn_sums", build.function(
-        "batch_norm", "armnet_bn_sums",
-        [_I, _P, _P, _P, _P, _D, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
-         _P])(mode, _ptr(x3), _ptr(dy3), _ptr(rows), _ptr(count),
-              float(spatial), _ptr(sx), _ptr(mean), _ptr(rstd), _ptr(dgamma),
-              _ptr(dbeta), out.data_ptr(), scratch.data_ptr(), n, c, s,
-              build.raw_stream(x3.device)))
+    build.launch("batch_norm", "armnet_bn_sums",
+                 [_I, _P, _P, _P, _P, _D, _P, _P, _P, _P, _P, _P, _P, _L, _I,
+                  _I, _P], x3.device,
+                 mode, _ptr(x3), _ptr(dy3), _ptr(rows), _ptr(count),
+                 float(spatial), _ptr(sx), _ptr(mean), _ptr(rstd),
+                 _ptr(dgamma), _ptr(dbeta), out.data_ptr(), scratch.data_ptr(),
+                 n, c, s)
 
 
 def bn_fwd(x3, rows, count, spatial, weight, bias, running_mean, running_var,
            eps, keep, group=None):
     """The forward on the card: (y3, mean, rstd) float32, the running
-    statistics updated in place."""
-    global LAUNCHES
+    statistics updated in place. It launches the mean's and the squares'
+    sums and folds, the statistics and the output; one call in the ledger
+    (armnet.kernel.bn_fwd)."""
     _check("bn_fwd", x3, rows, count, weight, bias, running_mean, running_var)
     n, c, s = _sizes("bn_fwd", x3, rows, count, weight, bias, running_mean,
                      running_var)
     dev = x3.device
-    with torch.cuda.device(dev):
-        sx = torch.empty((1, c), dtype=torch.float64, device=dev)
-        _sums(0, x3, None, rows, count, spatial, None, None, None, None, None,
-              sx)
-        sx = all_reduce_sum(sx, group)
-        sq = torch.empty_like(sx)
-        _sums(1, x3, None, rows, count, spatial, sx, None, None, None, None,
-              sq)
-        sq = all_reduce_sum(sq, group)
-        mean = torch.empty(c, dtype=torch.float32, device=dev)
-        rstd = torch.empty_like(mean)
-        stream = build.raw_stream(dev)
-        _launch("bn_stats", build.function(
-            "batch_norm", "armnet_bn_stats",
-            [_P, _P, _P, _D, _F, _F, _F, _P, _P, _P, _P, _I, _P])(
-            sx.data_ptr(), sq.data_ptr(), _ptr(count), float(spatial), eps,
-            keep, 1 - keep, mean.data_ptr(), rstd.data_ptr(),
-            running_mean.data_ptr(), running_var.data_ptr(), c, stream))
-        y = torch.empty_like(x3)
-        _launch("bn_apply", build.function(
-            "batch_norm", "armnet_bn_apply",
-            [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P])(
-            x3.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            weight.data_ptr(), bias.data_ptr(), y.data_ptr(), n, c, s,
-            stream))
-    LAUNCHES += FWD_CALL_LAUNCHES
+    sx = torch.empty((1, c), dtype=torch.float64, device=dev)
+    _sums(0, x3, None, rows, count, spatial, None, None, None, None, None, sx)
+    sx = all_reduce_sum(sx, group)
+    sq = torch.empty_like(sx)
+    _sums(1, x3, None, rows, count, spatial, sx, None, None, None, None, sq)
+    sq = all_reduce_sum(sq, group)
+    mean = torch.empty(c, dtype=torch.float32, device=dev)
+    rstd = torch.empty_like(mean)
+    build.launch("batch_norm", "armnet_bn_stats",
+                 [_P, _P, _P, _D, _F, _F, _F, _P, _P, _P, _P, _I, _P], dev,
+                 sx.data_ptr(), sq.data_ptr(), _ptr(count), float(spatial),
+                 eps, keep, 1 - keep, mean.data_ptr(), rstd.data_ptr(),
+                 running_mean.data_ptr(), running_var.data_ptr(), c)
+    y = torch.empty_like(x3)
+    build.launch("batch_norm", "armnet_bn_apply",
+                 [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P], dev,
+                 x3.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                 weight.data_ptr(), bias.data_ptr(), y.data_ptr(), n, c, s,
+                 call="bn_fwd")
     return y, mean, rstd
 
 
 def bn_bwd(x3, dy3, rows, count, spatial, weight, mean, rstd, group=None):
-    """The backward on the card: (dx3, dweight, dbias) float32."""
-    global BWD_LAUNCHES
+    """The backward on the card: (dx3, dweight, dbias) float32. It launches
+    the two sums, their fold and dx; one call in the ledger
+    (armnet.kernel.bn_bwd)."""
     _check("bn_bwd", x3, dy3, rows, count, weight, mean, rstd)
     n, c, s = _sizes("bn_bwd", x3, rows, count, weight, mean, rstd)
     if dy3.shape != x3.shape:
         raise ValueError(f"bn_bwd: dy {tuple(dy3.shape)} is not "
                          f"{tuple(x3.shape)}")
     dev = x3.device
-    with torch.cuda.device(dev):
-        sums = torch.empty((2, c), dtype=torch.float64, device=dev)
-        dweight = torch.empty_like(weight)
-        dbias = torch.empty_like(weight)
-        _sums(2, x3, dy3, None, None, spatial, None, mean, rstd, dweight,
-              dbias, sums)
-        sums = all_reduce_sum(sums, group)
-        dx = torch.empty_like(x3)
-        _launch("bn_dx", build.function(
-            "batch_norm", "armnet_bn_dx",
-            [_P, _P, _P, _P, _D, _P, _P, _P, _P, _P, _L, _I, _I, _P])(
-            x3.data_ptr(), dy3.data_ptr(), _ptr(rows), _ptr(count),
-            float(spatial), sums.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), weight.data_ptr(), dx.data_ptr(), n, c, s,
-            build.raw_stream(dev)))
-    BWD_LAUNCHES += BWD_CALL_LAUNCHES
+    sums = torch.empty((2, c), dtype=torch.float64, device=dev)
+    dweight = torch.empty_like(weight)
+    dbias = torch.empty_like(weight)
+    _sums(2, x3, dy3, None, None, spatial, None, mean, rstd, dweight, dbias,
+          sums)
+    sums = all_reduce_sum(sums, group)
+    dx = torch.empty_like(x3)
+    build.launch("batch_norm", "armnet_bn_dx",
+                 [_P, _P, _P, _P, _D, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+                 dev, x3.data_ptr(), dy3.data_ptr(), _ptr(rows), _ptr(count),
+                 float(spatial), sums.data_ptr(), mean.data_ptr(),
+                 rstd.data_ptr(), weight.data_ptr(), dx.data_ptr(), n, c, s,
+                 call="bn_bwd")
     return dx, dweight, dbias

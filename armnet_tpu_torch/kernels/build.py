@@ -6,6 +6,12 @@ go to build/armnet_tpu_torch/ at the repository root, named by a hash of
 the source and flags, and are built at first use (`load`) or all at once,
 one nvcc process per source in parallel (`build_all`). Nothing here runs
 at import time.
+
+Every kernel call of the wrappers goes through `launch`: the device
+entered, the current stream appended, a non-zero cudaError_t raised, and
+the wrapper's call counted in the ledger of what ran on the card
+(utils/tracing: `armnet.kernel.<call>`, one a call of a public wrapper,
+whatever number of kernels it launches).
 """
 
 import ctypes
@@ -15,8 +21,13 @@ import os
 import subprocess
 import time
 
+import torch
+
+from armnet_tpu_torch.utils.tracing import count
+
 __all__ = ["CSRC_DIR", "BUILD_DIR", "sources", "build_all", "build_log",
-           "load", "function", "raw_stream"]
+           "load", "function", "raw_stream", "launch", "KERNEL_COUNTER",
+           "KERNELS", "KERNEL_CALLS"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -25,6 +36,23 @@ BUILD_DIR = os.path.join(
 # no --use_fast_math: FTZ and approximate powf break the kernels' parity
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the ledger's prefix: armnet.kernel.<call> counts a wrapper's calls
+KERNEL_COUNTER = "armnet.kernel."
+# every public kernel wrapper, the one list of them: (its module in
+# armnet_tpu_torch.kernels, the wrapper, its plain version, its call's name
+# in the ledger): K1/K2, K3/K4, K7, K5, K6, K8's pair, K9's pair
+KERNELS = (
+    ("entmax_cuda", "entmax_kernel", "entmax_plain", "entmax_fwd"),
+    ("entmax_cuda", "entmax_bwd_kernel", "entmax_bwd_plain", "entmax_bwd"),
+    ("scatter_cuda", "table_grad", "table_grad_plain", "table_grad"),
+    ("arm_cuda", "arm1h_fwd_kernel", "arm1h_fwd_plain", "arm1h_fwd"),
+    ("arm_cuda", "arm1h_bwd_kernel", "arm1h_bwd_plain", "arm1h_bwd"),
+    ("cin_cuda", "cin_fwd", "cin_fwd_plain", "cin_fwd"),
+    ("cin_cuda", "cin_bwd", "cin_bwd_plain", "cin_bwd"),
+    ("bn_cuda", "bn_fwd", "bn_fwd_plain", "bn_fwd"),
+    ("bn_cuda", "bn_bwd", "bn_bwd_plain", "bn_bwd"))
+KERNEL_CALLS = tuple(call for *_, call in KERNELS)
 
 _loaded = {}
 
@@ -135,6 +163,20 @@ def function(source, name, argtypes, restype=ctypes.c_int):
 def raw_stream(device):
     """The handle (an int) of PyTorch's current CUDA stream on `device`,
     without making a torch.cuda.Stream object."""
-    import torch
-
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def launch(source, entry, argtypes, device, *args, call=None):
+    """Call the C entry `entry` of csrc/<source>.cu (argtypes: all of its
+    arguments, the stream last) with `args` and the current stream of
+    `device` appended, inside torch.cuda.device(device). Raises
+    RuntimeError naming the entry and the cudaError on a non-zero return.
+    `call`: where this launch ends a wrapper's call, the call's name in the
+    ledger, counted once the entry has returned 0."""
+    fn = function(source, entry, argtypes)
+    with torch.cuda.device(device):
+        err = fn(*args, raw_stream(device))
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {err}")
+    if call is not None:
+        count(KERNEL_COUNTER + call)

@@ -26,13 +26,8 @@ import torch
 
 from armnet_tpu_torch.kernels import build
 
-__all__ = ["cin_fwd", "cin_bwd", "cin_fwd_plain", "cin_bwd_plain",
-           "bwd_launches", "LAUNCHES", "BWD_LAUNCHES"]
+__all__ = ["cin_fwd", "cin_bwd", "cin_fwd_plain", "cin_bwd_plain"]
 
-# kernel launches since the count was last set to 0 (cin_fwd adds one,
-# cin_bwd the launches of its C entry, each after a successful call)
-LAUNCHES = 0
-BWD_LAUNCHES = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -97,29 +92,22 @@ def _sizes(who, x0t, xkt, w, *more):
     return m, f, c, n
 
 
-def _launch(who, err):
-    if err != 0:
-        raise RuntimeError(f"{who} kernel launch failed: cudaError {err}")
-
-
 def cin_fwd(x0t, xkt, w):
-    """The fused forward on the card: out [B, E, N] float32."""
-    global LAUNCHES
+    """The fused forward on the card: out [B, E, N] float32. Counted in the
+    ledger as armnet.kernel.cin_fwd (build.launch)."""
     m, f, c, n = _sizes("cin_fwd", x0t, xkt, w)
     out = torch.empty((*x0t.shape[:-1], n), dtype=torch.float32,
                       device=x0t.device)
-    with torch.cuda.device(x0t.device):
-        _launch("cin_fwd", build.function(
-            "cin", "armnet_cin_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _P])(
-            x0t.data_ptr(), xkt.data_ptr(), w.data_ptr(), out.data_ptr(),
-            m, f, c, n, build.raw_stream(x0t.device)))
-    LAUNCHES += 1
+    build.launch("cin", "armnet_cin_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+                 x0t.device, x0t.data_ptr(), xkt.data_ptr(), w.data_ptr(),
+                 out.data_ptr(), m, f, c, n, call="cin_fwd")
     return out
 
 
 def cin_bwd(x0t, xkt, w, out, dout):
-    """The fused backward on the card: (dx0t, dxkt, dw) float32."""
-    global BWD_LAUNCHES
+    """The fused backward on the card: (dx0t, dxkt, dw) float32; one call
+    in the ledger (armnet.kernel.cin_bwd), whatever kernels it launches
+    (the mask, dx, dW and the ordered sums where it cuts them)."""
     m, f, c, n = _sizes("cin_bwd", x0t, xkt, w, out, dout)
     dev = x0t.device
     dx0 = torch.empty_like(x0t)
@@ -128,20 +116,10 @@ def cin_bwd(x0t, xkt, w, out, dout):
     nbytes = build.function("cin", "armnet_cin_bwd_scratch", [_I] * 4,
                             ctypes.c_longlong)(m, f, c, n)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        _launch("cin_bwd", build.function(
-            "cin", "armnet_cin_bwd",
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])(
-            x0t.data_ptr(), xkt.data_ptr(), w.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), dx0.data_ptr(), dxk.data_ptr(), dw.data_ptr(),
-            scratch.data_ptr(), m, f, c, n, build.raw_stream(dev)))
-    BWD_LAUNCHES += bwd_launches(m, f, c, n)
+    build.launch("cin", "armnet_cin_bwd",
+                 [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                 dev, x0t.data_ptr(), xkt.data_ptr(), w.data_ptr(),
+                 out.data_ptr(), dout.data_ptr(), dx0.data_ptr(),
+                 dxk.data_ptr(), dw.data_ptr(), scratch.data_ptr(), m, f, c, n,
+                 call="cin_bwd")
     return dx0, dxk, dw
-
-
-def bwd_launches(m, f, c, n):
-    """Kernel launches of one cin_bwd call on M = B * E rows, F fields, C
-    channels and N maps: the mask, dx, dW, and the ordered sums of dx0's
-    column tiles and of dW's row slices where the call cuts them."""
-    return build.function("cin", "armnet_cin_bwd_launches", [_I] * 4)(
-        m, f, c, n)

@@ -34,9 +34,9 @@ dx = dy*g - (sum(dy*g) / sum(g)) * g.
 
 import torch
 
-__all__ = ["pow_inv", "pow_static", "solve_entmax_axis0", "entmax_bwd_axis0",
-           "solver_mode", "bisect_steps", "SOLVERS", "N_BISECT", "N_NEWTON",
-           "N_FAST", "N_POLISH"]
+__all__ = ["pow_inv", "pow_static", "solve_entmax_axis0", "solve_tau_axis0",
+           "entmax_bwd_axis0", "solver_mode", "bisect_steps", "SOLVERS",
+           "N_BISECT", "N_NEWTON", "N_FAST", "N_POLISH"]
 
 N_BISECT = 8
 N_NEWTON = 6
@@ -113,13 +113,21 @@ def _sum0(x):
     return s
 
 
-def solve_entmax_axis0(x, alpha, n_iter=50, *, solver="fastpow",
-                       n_fast=N_FAST, n_polish=N_POLISH, n_bisect=N_BISECT,
-                       n_newton=N_NEWTON):
-    """alpha-entmax over axis 0 of a float32 tensor of any rank; `solver`
-    and the step budgets of the fastpow (n_fast, n_polish) and newton
-    (n_bisect, n_newton) branches default to the kernels' compiled
-    ones."""
+def solve_entmax_axis0(x, alpha, n_iter=50, **budgets):
+    """alpha-entmax over axis 0 of a float32 tensor of any rank, from the
+    threshold that solve_tau_axis0 finds (`budgets`: its keywords)."""
+    xs, tau = solve_tau_axis0(x, alpha, n_iter, **budgets)
+    p = pow_inv(xs - tau, 1.0 / (alpha - 1.0))
+    return p / _sum0(p)
+
+
+def solve_tau_axis0(x, alpha, n_iter=50, *, solver="fastpow", n_fast=N_FAST,
+                    n_polish=N_POLISH, n_bisect=N_BISECT, n_newton=N_NEWTON):
+    """((alpha - 1) * x, tau) of alpha-entmax over axis 0 of a float32
+    tensor: the output is clamp(that - tau, 0) ** (1 / (alpha - 1)),
+    normalized. `solver` and the step budgets of the fastpow (n_fast,
+    n_polish) and newton (n_bisect, n_newton) branches default to the
+    kernels' compiled ones."""
     am1 = alpha - 1.0
     inv_am1 = 1.0 / am1
     x = x * am1
@@ -141,8 +149,7 @@ def solve_entmax_axis0(x, alpha, n_iter=50, *, solver="fastpow",
             dm = dm * 0.5
             tau = t_lo + dm
             t_lo = torch.where(f_val(tau) * f_lo0 >= 0, tau, t_lo)
-        p = pow_inv(x - tau, inv_am1)
-        return p / _sum0(p)
+        return x, tau
 
     if mode == "fastpow":
         # the fast bracket only seeds tau; the polish below re-derives its
@@ -177,8 +184,7 @@ def solve_entmax_axis0(x, alpha, n_iter=50, *, solver="fastpow",
         # is kept, not kicked to the midpoint
         inside = (t_n >= tau_lo) & (t_n <= tau_hi)
         tau = torch.where(inside, t_n, 0.5 * (tau_lo + tau_hi))
-    p = pow_inv(x - tau, inv_am1)
-    return p / _sum0(p)
+    return x, tau
 
 
 def entmax_bwd_axis0(y, dy, alpha):

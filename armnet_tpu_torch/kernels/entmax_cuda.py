@@ -35,18 +35,12 @@ from armnet_tpu_torch.kernels.entmax_common import (bisect_steps,
 
 __all__ = ["entmax_kernel", "entmax_plain", "entmax_bwd_kernel",
            "entmax_bwd_plain", "mode_id", "g_mode_id", "route_for",
-           "bwd_route_for", "bucket_for", "fwd_function", "fwd_args",
+           "bwd_route_for", "bucket_for", "fwd_entry", "fwd_args",
            "fwd_blocks_per_sm", "bwd_blocks_per_sm", "FWD_ARGTYPES",
-           "BWD_ARGTYPES", "LAUNCHES", "BWD_LAUNCHES", "REGISTER_D",
-           "SMEM_BYTES", "PACKED_THREADS", "PACKED_FWD_INNER",
-           "PACKED_LANES_INNER", "PACKED_BWD_INNER", "PACKED_BWD_SMEM",
-           "FILL_COLUMNS"]
+           "BWD_ARGTYPES", "REGISTER_D", "SMEM_BYTES", "PACKED_THREADS",
+           "PACKED_FWD_INNER", "PACKED_LANES_INNER", "PACKED_BWD_INNER",
+           "PACKED_BWD_SMEM", "FILL_COLUMNS"]
 
-# kernel launches since the count was last set to 0 (the one place that
-# adds to LAUNCHES is entmax_kernel, to BWD_LAUNCHES entmax_bwd_kernel,
-# each right after a successful launch)
-LAUNCHES = 0
-BWD_LAUNCHES = 0
 REGISTER_D = 64  # largest compile-time register bucket of the forward
 SMEM_BYTES = 232_448       # shared memory a block can use on Hopper
 PACKED_THREADS = 128       # threads of a packed block (both directions)
@@ -73,8 +67,9 @@ PACKED_BWD_SMEM = 65_536
 # the support's edge 1.07e-5 from the plain version, past the 1e-5 it is
 # held to, so it keeps one lane (and has no other build)
 FILL_COLUMNS = 65_536
-# argument types of the forward's C entries (fwd_args' order): a register
-# bucket's, and the column entry's (threads and shared where the bucket is)
+# argument types of the forward's C entries (fwd_args' order, then the
+# stream): a register bucket's, and the column entry's (threads and shared
+# where the bucket is)
 FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
@@ -192,21 +187,22 @@ def bwd_route_for(d, inner):
     return ("packed", per_block) if per_block >= 1 else ("staged", 0)
 
 
-def fwd_function(alpha, route, solver="fastpow"):
-    """The forward's ctypes entry for a static alpha on a route (route_for),
-    built at first use: a register bucket's entry of alpha's solver mode
-    (FWD_ARGTYPES), the packed route's of that mode (PACKED_ARGTYPES), or
-    the column entry of every mode (COLUMN_ARGTYPES)."""
+def fwd_entry(alpha, route, solver="fastpow"):
+    """(source, C entry, argument types) of the forward for a static alpha
+    on a route (route_for), build.launch's first three arguments: a
+    register bucket's entry of alpha's solver mode (FWD_ARGTYPES), the
+    packed route's of that mode (PACKED_ARGTYPES), or the column entry of
+    every mode (COLUMN_ARGTYPES)."""
     mode = mode_id(alpha, solver)
     if route[0] == "packed":
-        return build.function(*_PACKED_ENTRY.get(
-            mode, ("entmax", "armnet_entmax_fwd_packed")), PACKED_ARGTYPES)
+        return (*_PACKED_ENTRY.get(mode, ("entmax",
+                                          "armnet_entmax_fwd_packed")),
+                PACKED_ARGTYPES)
     if route[0] != "register":
-        return build.function("entmax_fwd_column", "armnet_entmax_fwd_column",
-                              COLUMN_ARGTYPES)
-    return build.function(*_FWD_ENTRY.get(mode, ("entmax",
-                                                 "armnet_entmax_fwd")),
-                          FWD_ARGTYPES)
+        return ("entmax_fwd_column", "armnet_entmax_fwd_column",
+                COLUMN_ARGTYPES)
+    return (*_FWD_ENTRY.get(mode, ("entmax", "armnet_entmax_fwd")),
+            FWD_ARGTYPES)
 
 
 def fwd_args(x, y, alpha, outer, d, inner, route, n_iter=50,
@@ -215,14 +211,14 @@ def fwd_args(x, y, alpha, outer, d, inner, route, n_iter=50,
     inner) view of x on `route` (route_for: a register route's argument is
     its bucket, FWD_ARGTYPES; the packed route's its bucket and lanes,
     PACKED_ARGTYPES; the others' their threads and where the column lives,
-    COLUMN_ARGTYPES), on the current stream."""
+    COLUMN_ARGTYPES), without the stream, which build.launch appends."""
     am1 = alpha - 1.0
     where, *place = route
     if where in ("shared", "global"):
         place = (place[0], int(where == "shared"))
     return (x.data_ptr(), y.data_ptr(), outer, d, inner, *place,
             mode_id(alpha, solver), bisect_steps(n_iter), am1, 1.0 / am1,
-            (1.0 / d) ** am1, build.raw_stream(x.device))
+            (1.0 / d) ** am1)
 
 
 def _view(x, alpha, axis, who, *more):
@@ -248,43 +244,34 @@ def entmax_kernel(x, alpha, axis=-1, n_iter=50, solver="fastpow"):
     """alpha-entmax along `axis` of a contiguous CUDA float32 tensor, on the
     current stream; solver="newton" launches the newton build at any
     generic alpha (entmax_common.solver_mode). Raises on what the kernel
-    does not take."""
-    global LAUNCHES
+    does not take. Counted in the ledger as armnet.kernel.entmax_fwd
+    (build.launch)."""
     alpha = float(alpha)
     outer, d, inner = _view(x, alpha, axis, "entmax_kernel")
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     route = route_for(d, inner, outer, alpha, solver)
-    fn = fwd_function(alpha, route, solver)
-    with torch.cuda.device(x.device):
-        err = fn(*fwd_args(x, y, alpha, outer, d, inner, route, n_iter,
-                           solver))
-    if err != 0:
-        raise RuntimeError(f"entmax kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    build.launch(*fwd_entry(alpha, route, solver), x.device,
+                 *fwd_args(x, y, alpha, outer, d, inner, route, n_iter,
+                           solver), call="entmax_fwd")
     return y
 
 
 def entmax_bwd_kernel(y, dy, alpha, axis=-1):
     """The entmax VJP along `axis` from the output y and the cotangent dy,
     contiguous CUDA float32 tensors of one shape, on the current stream.
-    Raises on what the kernel does not take."""
-    global BWD_LAUNCHES
+    Raises on what the kernel does not take. Counted in the ledger as
+    armnet.kernel.entmax_bwd (build.launch)."""
     alpha = float(alpha)
     outer, d, inner = _view(y, alpha, axis, "entmax_bwd_kernel", dy)
     dx = torch.empty_like(y)
     if y.numel() == 0:
         return dx
-    fn = build.function("entmax_bwd", "armnet_entmax_bwd", BWD_ARGTYPES)
-    with torch.cuda.device(y.device):
-        err = fn(y.data_ptr(), dy.data_ptr(), dx.data_ptr(), outer, d, inner,
+    build.launch("entmax_bwd", "armnet_entmax_bwd", BWD_ARGTYPES, y.device,
+                 y.data_ptr(), dy.data_ptr(), dx.data_ptr(), outer, d, inner,
                  bwd_route_for(d, inner)[1], g_mode_id(alpha), 2.0 - alpha,
-                 build.raw_stream(y.device))
-    if err != 0:
-        raise RuntimeError(
-            f"entmax backward kernel launch failed: cudaError {err}")
-    BWD_LAUNCHES += 1
+                 call="entmax_bwd")
     return dx
 
 

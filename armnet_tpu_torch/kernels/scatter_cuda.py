@@ -31,12 +31,8 @@ import torch
 from armnet_tpu_torch.kernels import build
 
 __all__ = ["table_grad", "table_grad_plain", "sort_ids", "sort_ids_plain",
-           "keys_plain", "LAUNCHES", "CHUNK"]
+           "keys_plain", "CHUNK"]
 
-# table_grad calls since the count was last set to 0 (the one place that
-# adds to it is table_grad, right after a successful launch of its kernels;
-# sort_ids, which checks its sort, does not count)
-LAUNCHES = 0
 CHUNK = 256      # csrc/table_grad.cu kChunk: the longest segment summed whole
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,11 +96,6 @@ def _scratch(n, e, device):
     return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
-def _launch(who, err):
-    if err != 0:
-        raise RuntimeError(f"{who} kernel launch failed: cudaError {err}")
-
-
 _IDS = (torch.int32, torch.int64)
 
 
@@ -117,22 +108,19 @@ def sort_ids(ids, nrows):
     n = ids.numel()
     sid = torch.empty(n, dtype=torch.int32, device=ids.device)
     perm = torch.empty_like(sid)
-    with torch.cuda.device(ids.device):
-        _launch("sort_ids", build.function(
-            "table_grad", "armnet_table_sort", [_P, _I, _I, _I, _P, _P, _P,
-                                                _P])(
-            ids.data_ptr(), ids.dtype == torch.int64, n, nrows,
-            sid.data_ptr(), perm.data_ptr(),
-            _scratch(n, 1, ids.device).data_ptr(),
-            build.raw_stream(ids.device)))
+    build.launch("table_grad", "armnet_table_sort", [_P, _I, _I, _I, _P, _P,
+                                                     _P, _P], ids.device,
+                 ids.data_ptr(), ids.dtype == torch.int64, n, nrows,
+                 sid.data_ptr(), perm.data_ptr(),
+                 _scratch(n, 1, ids.device).data_ptr())
     return sid, perm
 
 
 def table_grad(g, ids, nrows):
     """Dense [nrows, E] float32 gradient of a gather of g's rows at ids, on
     the card: g [N, E] (made contiguous float32), ids [N] int32 or int64,
-    contiguous. Raises on what the kernel does not take."""
-    global LAUNCHES
+    contiguous. Raises on what the kernel does not take. Counted in the
+    ledger as armnet.kernel.table_grad (build.launch)."""
     if not g.is_cuda:
         raise ValueError(f"table_grad needs CUDA tensors, got {g.device}")
     g = g.float().contiguous()
@@ -143,12 +131,9 @@ def table_grad(g, ids, nrows):
                          f"{tuple(ids.shape)} do not fit")
     n, e = g.shape
     out = torch.empty((nrows, e), dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        _launch("table_grad", build.function(
-            "table_grad", "armnet_table_grad",
-            [_P, _P, _I, _I, _I, _I, _P, _P, _P])(
-            g.data_ptr(), ids.data_ptr(), ids.dtype == torch.int64, n, nrows,
-            e, out.data_ptr(), _scratch(n, e, g.device).data_ptr(),
-            build.raw_stream(g.device)))
-    LAUNCHES += 1
+    build.launch("table_grad", "armnet_table_grad",
+                 [_P, _P, _I, _I, _I, _I, _P, _P, _P], g.device,
+                 g.data_ptr(), ids.data_ptr(), ids.dtype == torch.int64, n,
+                 nrows, e, out.data_ptr(),
+                 _scratch(n, e, g.device).data_ptr(), call="table_grad")
     return out

@@ -15,7 +15,9 @@ Semantics kept from the JAX trainer (and the reference's train.py):
 
 Meters stay on the device and are read only at report and epoch ends.
 The loaders hand over batches on the trainer's device (data/libsvm.py's
-lookahead); the loop copies nothing.
+lookahead); the loop copies nothing. A fit ends with a line of the feed's
+counters and one of every `armnet.*` counter of utils/tracing that moved
+during it: the kernel wrappers' calls and the ops' routes.
 
 Multi-process runs (a mesh over torch.distributed, --mesh and
 --shard_embedding; parallel/): every rank builds the full model from the
@@ -232,7 +234,7 @@ class Trainer:
     def fit(self, epochs, patience=1, eval_freq=10000, report_freq=30):
         best_valid, best_test, patience_cnt = 0.0, 0.0, 0
         start = time.time()
-        cin_before, bn_before = counts("armnet.cin."), counts("armnet.bn.")
+        before = counts("armnet.")
         if self.metrics_path:
             open(self.metrics_path, "w").close()   # one fit = one file
 
@@ -287,14 +289,9 @@ class Trainer:
             f"{[loader.resident for loader in self.loaders]}; train epoch "
             f"orders drawn ahead {train.orders_ahead}, at the epoch's start "
             f"{train.orders_at_start}")
-        cin = {k: v - cin_before.get(k, 0)
-               for k, v in counts("armnet.cin.").items()}
-        if any(cin.values()):
-            self.logger.info(f"cin: calls by route and blocked-route blocks "
-                             f"{dict(sorted(cin.items()))}")
-        bn = {k: v - bn_before.get(k, 0)
-              for k, v in counts("armnet.bn.").items()}
-        if any(bn.values()):
-            self.logger.info(f"bn: BatchNorm calls by route "
-                             f"{dict(sorted(bn.items()))}")
+        moved = {k: v - before.get(k, 0) for k, v in counts("armnet.").items()
+                 if v != before.get(k, 0)}
+        if moved:
+            self.logger.info(f"counters: what ran during the fit (kernel "
+                             f"calls, routes) {dict(sorted(moved.items()))}")
         return best_valid, best_test

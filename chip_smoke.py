@@ -8,70 +8,17 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
   2. build    nvcc of every armnet_tpu_torch/kernels/csrc/*.cu, in parallel;
               ptxas registers and spills of every kernel, and of the
               instantiations the main paths launch apart
-  3. kernel   each CUDA kernel against its plain PyTorch version on the
-              card: the entmax forward and backward at both Criteo and
-              Frappe shapes, a 2-D last-axis and a ragged shape, the
-              Diabetes130 step (43 fields), columns of 65, 100 and 300
-              (the forward's shared-memory route), the shapes where inner
-              is small (the last axis of mh_breakdown's gates, (1048576,
-              39, 1), and the multi-head presets' gates [B, F, C] at C
-              8-64: the packed routes) and a NaN column, at four alphas
-              (timed at the Criteo, Frappe and Diabetes130 steps and at d
-              100, with each route; the backward's registers, spills and
-              blocks per SM);
-              the table gradient on a Criteo batch's int32 and int64 ids,
-              Zipf-skewed ids, all ids equal, wrapped and dropped ids and
-              a ragged table, and on the Criteo batch at the zoo's widths
-              E = 1 (FeaturesLinear) and 20 (HOFM) and on the UCI step's
-              16 live rows of 5,500 (512 updates each), twice (bitwise
-              equal), its radix sort
-              against a stable torch.sort, and its time split into the
-              sort and the fill and segmented sums (by torch.profiler; by
-              CUDA events where no profiler session records a device
-              event: split_by in the line). Kernel, plain and
-              library times (device ms of one call, and host-inclusive
-              ms beside them: armnet_tpu_torch/kernels/bench.py) beside
-              the bound
-     kernel_arm  the fused ARM-1h forward (K5) and recompute backward (K6)
-              against their plain versions at the Criteo and Frappe steps,
-              a ragged batch, one row, O 200 and 96, F 16 and 17, fewer
-              rows than K6's grid, wide embeddings (Frappe at nemb 100
-              with h 10, Criteo's fields at nemb 40) and past the 40-field
-              bucket (F 41, 43, 64, 128, the wide build at 43), at four
-              alphas, K6 twice (bitwise equal); kernel, plain and
-              composed-path times at the Criteo and Diabetes130 steps and
-              at the UCI armnet_1h step (B 512, F 16, alpha 1.7) beside
-              the bound, blocks per SM, K6's grid and its split
-              into its main kernel and the ordered sum of the blocks'
-              partials
-     kernel_multihead  K2 and K4 at the multi-head presets' channel
-              counts C = nattn_head x h in {6, 8, 16, 32, 64, 256, 512} at
-              39 and 43 fields and four alphas against their plain
-              versions; timed at the gates of cr_armnet [4096, 39, 256],
-              alpha 2, db_armnet [1024, 43, 32], alpha 1.7, the UCI armnet
-              step [512, 16, 512], alpha 1.7, av_armnet [4096, 22, 32],
-              alpha 1.5, av_armnet+ [4096, 22, 64], alpha 2,
-              frappe_armnet+ [4096, 10, 16], alpha 1.5, and ml_armnet+
-              [4096, 3, 8], alpha 2.5, beside the bound and the plain
-              versions, with each route and its blocks per SM
-     kernel_cin  the CIN layer's fused kernels (K8) at the xdfm_criteo
-              step's layers (65,536 rows, E 10, 39 fields, C 39 and 200,
-              200 maps), TF32 off: forward, dx0, dxk and dW against the
-              plain version (on 4,096 rows; dW summed over blocks of them)
-              within 2e-5 of the largest entry, the backward twice bitwise
-              equal, launches a call; device and host-inclusive ms beside
-              the bound, the plain version and the blocked route
-              (kernels/bench.py's cin section), registers and spills
-     kernel_bn  BatchNorm's train-mode kernels (K9) at the cells'
-              BatchNorms that take them (kernels/bench.py's BN_SHAPES:
-              arm_bn of cr_armnet1h and cr_armnet), masked
-              with an eighth of the rows pad rows of outliers: y, mean,
-              rstd, the running statistics, dx, dweight and dbias within
-              KERNELS_VS_PLAIN_RTOL of the plain version, norm-wise; both
-              passes twice, bitwise equal; launches a call; device and
-              host-inclusive ms beside the bound, the plain version,
-              the composed path and F.batch_norm (cuDNN), registers and
-              spills
+  3. card_tests  `python -m pytest --noconftest -q tests/test_torch_cuda.py`
+              in a fresh process: every kernel against its plain PyTorch
+              version on the card (the cases each kernel is held to,
+              at the serving and step shapes and at every alpha among
+              them), its refusals and its calls in the ledger; a non-zero
+              exit fails the smoke
+     kernel_times  kernels/bench.py's sections in this process: each
+              kernel's device and host-inclusive ms beside its bound, its
+              plain version and the composed path or library, its routes,
+              registers, spills and blocks per SM (the numbers of the
+              closing summary)
      data_path  the libsvm parse routes on a seeded 100,000-row Criteo-
               geometry file: seconds of the native parser (built with g++
               from armnet_tpu_torch/data/csrc/), the vectorized numpy
@@ -103,7 +50,7 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               ensemble off under --kernels pallas-fused (K5 and K6 per
               step, no entmax launch), 2 epochs of 10 batches on seeded
               synthetic files: finite losses that fall, the kernel
-              launches per train step and per eval batch, one step on the
+              calls per train step and per eval batch, one step on the
               card against the same step on the CPU from the run's
               checkpoint, and warm train rows/s over whole epochs
      bench    the measurement harness, each script in fresh processes:
@@ -113,16 +60,16 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               the others at 3 x 50), the step breakdown of armnet_1h
               (3 x 30) under both kernel choices, and the recipes'
               --quick rows: every line parses, every time and rate finite
-              and > 0, the launches per step of each kernel (K7 none in
+              and > 0, the calls per step of each kernel (K7 none in
               fwd and fwd_bwd_dense)
      benchmarks  the rest of the harness: K1 and K3 on the last axis of
               mh_breakdown's gates [4096, 4, 64, 39] (the (1048576, 39, 1)
-              view) through its entmax stages in this process, held to
-              their plain versions and timed beside them and the bound;
+              view) through its entmax stages in this process (their
+              calls);
               tablegrad_breakdown's table gradient against index_add_ on
               the card; then in fresh processes mh_breakdown,
               tablegrad_breakdown and tablegrad_prep_bench (every stage,
-              times finite and > 0, launches per call), fastpow_accuracy
+              times finite and > 0, kernel calls a stage), fastpow_accuracy
               (the kernel's worst error within 1.2x the newton build's at
               each alpha), scaling --max_devices 1 (one row) and one A/A
               pair of the bench through paired_ab
@@ -140,7 +87,7 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               shard_tables (K7 into the shard) against the replicated step
      train_armnet  the same at the cr_armnet and cr_armnet+ widths under
               auto, and gc_arm with cr_armnet's flags under pallas-fused
-              (K2, K4 and K7 a step, no K5/K6): launches, falling losses,
+              (K2, K4 and K7 a step, no K5/K6): calls, falling losses,
               one step on the card against the CPU on 1024 rows (the
               CPU step takes the card's outputs of the BatchNorms over
               channel axis 1), and for cr_armnet warm rows/s and the
@@ -149,23 +96,23 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               valid and test AUC per epoch beside the JAX package's curve
      diabetes_train  3 epochs of the db_armnet1h recipe (43 fields, alpha
               1.7) on data/uci_diabetes/ under --kernels auto and
-              pallas-fused: launches per step, falling finite losses, one
+              pallas-fused: calls per step, falling finite losses, one
               step on the card against the CPU, valid and test AUC
      diabetes_parity  15 epochs of the db_armnet1h recipe in process from
               the JAX package's seed-2025 init (data/parity/), under
               --kernels auto and pallas-fused: the best valid AUC within
               0.003 of the JAX package's from that init on the CPU; the
               per-epoch valid AUC beside the JAX and port CPU curves, the
-              first epoch past 0.9, train losses, launches and seconds
+              first epoch past 0.9, train losses, calls and seconds
      diabetes_armnet  3 epochs of the db_armnet recipe (K2/K4 at C = 32,
               alpha 1.7) on data/uci_diabetes/: the same checks
      frappe_zoo  afn, sa_glu and the other 16 zoo models (lr, fm, hofm,
               afm, nfm, dnn, wd, dfm, ipnn, kpnn, dcn, dcn+, cin, xdfm,
               gcn, gat) with the CLI defaults on data/frappe/, 2 epochs
               each (6-20 for the models with a first-order term): K7
-              launches (twice a step where a FeaturesLinear sits beside
+              calls (twice a step where a FeaturesLinear sits beside
               the table) and, for cin and xdfm, K8's (a forward a layer a
-              batch, its backward's launches a layer a step), no other;
+              batch, a backward a layer a step), no other;
               valid and test AUC against the JAX
               package's over as many epochs, one step against the CPU
               (unpinned but for the channel-axis-1 BatchNorms and gcn's
@@ -173,7 +120,7 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               of the best checkpoint with GPU vs CPU logits, and AFN's
               main table at least 1e-4 at every forward
      criteo_zoo  xdfm and dfm at Criteo geometry (nfeat 2.1M, 39 fields,
-              batch 4096) on the synthetic split: launches (K7 twice a
+              batch 4096) on the synthetic split: calls (K7 twice a
               step; xdfm's K8 a layer, CIN 3 x 128), falling losses, one
               step against the CPU, predict of the serving file with GPU
               vs CPU logits, peak device memory and warm train rows/s
@@ -181,11 +128,11 @@ Phases, one line each, stopping at the first failure with a non-zero exit:
               letter geometry (20,000 rows, 16 columns, 26 classes,
               conxuntos.dat 10,000 / 10,000): armnet at the CLI defaults
               and armnet_1h under pallas-fused, --batch_size 512
-              --valid_perc 0.1, 10 epochs: launches, falling losses, one
+              --valid_perc 0.1, 10 epochs: calls, falling losses, one
               step against the CPU (pinned; armnet_1h unpinned too), best
               valid, test and train accuracy against the JAX package's
      bf16     --bf16 on Frappe: frappe_armnet1h under auto and
-              pallas-fused and frappe_armnet, 2 epochs each: launches,
+              pallas-fused and frappe_armnet, 2 epochs each: calls,
               the Embedding outputs bfloat16 and the MLP head's input in
               the JAX model's dtype, falling losses, the step against the
               CPU (loss within 2e-2, the kernels held to their plain
@@ -206,6 +153,7 @@ CUDA is absent. Imports nothing of JAX.
 """
 
 import contextlib
+import importlib
 import io
 import json
 import math
@@ -220,8 +168,7 @@ import numpy as np
 import torch
 
 from armnet_tpu_torch import predict
-from armnet_tpu_torch.benchmarks.timing import (
-    launch_counts as read_counts, zero_launch_counts as zero_counts)
+from armnet_tpu_torch.benchmarks.timing import kernel_calls
 from armnet_tpu_torch.bridge import from_jax_arrays
 from armnet_tpu_torch.data import libsvm
 from armnet_tpu_torch.data.libsvm import (BatchIterator, LibsvmDataset,
@@ -229,16 +176,11 @@ from armnet_tpu_torch.data.libsvm import (BatchIterator, LibsvmDataset,
 from armnet_tpu_torch.data.uci import uci_loader
 from armnet_tpu_torch.kernels import (arm_cuda, bench, bn_cuda, build,
                                       cin_cuda, entmax_cuda, scatter_cuda)
-from armnet_tpu_torch.kernels.bench import (CRITEO_ARM, DIABETES_ARM,
-                                            FRAPPE_ARM, FRAPPE_NEMB100_ARM,
-                                            arm_bwd_split, arm_inputs,
-                                            ZOO_WIDTHS, criteo_ids,
-                                            device_events, host_incl_ms,
-                                            ptxas_report, table_grad_cases,
-                                            table_grad_split, time_ms)
-from armnet_tpu_torch.kernels.bounds import (bound, entmax_bound_ms,
-                                             entmax_bwd_ops_per_element,
-                                             fused_arm_bounds)
+from armnet_tpu_torch.kernels.bench import (CRITEO_SHAPE, DIABETES_SHAPE,
+                                            FRAPPE_SHAPE,
+                                            KERNELS_VS_PLAIN_RTOL, ZOO_WIDTHS,
+                                            criteo_ids, device_events,
+                                            ptxas_report, within)
 from armnet_tpu_torch.models import create_model, param_transform_for
 from armnet_tpu_torch.ops.interaction import arm1h_interaction
 from armnet_tpu_torch.ops.layers import BatchNorm
@@ -253,30 +195,14 @@ from armnet_tpu_torch.utils.presets import PRESETS
 from armnet_tpu_torch.utils.logging import get_logger, remove_logger
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-CRITEO_SHAPE = (4096, 39, 128)
-FRAPPE_SHAPE = (4096, 10, 128)
-# the db_armnet1h step (batch 1024, 43 fields), and columns past the entmax
-# forward's register buckets (its shared-memory route), cut in batch so
-# that the plain versions stay quick
-DIABETES_SHAPE = (1024, 43, 128)
-LONG_SHAPES = ((256, 65, 128), (128, 100, 128), (32, 300, 128))
-# the shapes where inner is small (the packed routes'): the last axis of
-# mh_breakdown's gates [4096, 4, 64, 39] as its (outer, d, inner) view, and
-# the multi-head presets' gates [B, F, C] (utils/presets.py: C = nattn_head
-# x h, batch 4096 but db_armnet's 1024)
+# the packed routes' main-path views: the last axis of mh_breakdown's gates
+# [4096, 4, 64, 39] as its (outer, d, inner) view, and db_armnet's gates
 LAST_AXIS_VIEW = (4096 * 4 * 64, 39, 1)
-CR_ARMNET_SHAPE, DB_ARMNET_SHAPE = (4096, 39, 256), (1024, 43, 32)
-AV_ARMNET_SHAPE, AV_ARMNET_PLUS_SHAPE = (4096, 22, 32), (4096, 22, 64)
-FRAPPE_ARMNET_PLUS_SHAPE, ML_ARMNET_PLUS_SHAPE = (4096, 10, 16), (4096, 3, 8)
-PACKED_SHAPES = (LAST_AXIS_VIEW, DB_ARMNET_SHAPE, AV_ARMNET_SHAPE,
-                 AV_ARMNET_PLUS_SHAPE, FRAPPE_ARMNET_PLUS_SHAPE,
-                 ML_ARMNET_PLUS_SHAPE)
+DB_ARMNET_SHAPE = (1024, 43, 32)
 CRITEO_NFEAT = 2_100_000
-ALPHAS = (1.5, 1.7, 2.0, 2.5)
 SEED = 2025
 TRAIN_BATCHES, EVAL_ROWS = 10, 6000      # synthetic Criteo train split
 CPU_ROWS = 1024     # rows of a scoring batch that the CPU scores to compare
-PLAIN_REPS = 5      # timings of a plain version (10-40 ms a call on the card)
 # the JAX package's valid AUC after each epoch of phase_frappe_train's run,
 # on the CPU: `JAX_PLATFORMS=cpu python train.py --model armnet_1h --alpha
 # 2.0 --h 128 --lr 0.001 --batch_size 4096 --epoch 3 --patience 3 --seed
@@ -379,165 +305,52 @@ def phase_build():
         ptxas_main_path=main_path, ptxas=report)
 
 
-def phase_kernel():
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    # the serving shapes of the Criteo and Frappe phases (register buckets
-    # 40 and 16), a 2-D last-axis case and a ragged one (packed), the
-    # Diabetes130 step (bucket 48), columns past the buckets (shared) and
-    # the packed routes' shapes
-    cases = [(CRITEO_SHAPE, 1), (FRAPPE_SHAPE, 1), ((8192, 39), -1),
-             ((7, 5, 13), 1), (DIABETES_SHAPE, 1),
-             *((shape, 1) for shape in LONG_SHAPES + PACKED_SHAPES)]
-    stats = {}
-    for alpha in ALPHAS:
-        tol = 5e-6 if alpha <= 2.0 else 1e-5
-        errs = []
-        for shape, axis in cases:
-            x = torch.randn(shape, generator=g, device="cuda") * 3.0
-            yk = entmax_cuda.entmax_kernel(x, alpha, axis)
-            yp = entmax_cuda.entmax_plain(x, alpha, axis)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(yk).all()),
-                  f"entmax kernel non-finite at alpha={alpha} {shape}")
-            err = float((yk - yp).abs().max())
-            rowsum = float((yk.sum(axis) - 1.0).abs().max())
-            check(err <= tol, f"entmax kernel vs plain at alpha={alpha} "
-                              f"{shape}: {err} > {tol}")
-            check(rowsum <= 1e-5, f"entmax rows at alpha={alpha} {shape} "
-                                  f"sum to 1 +- {rowsum}")
-            errs.append(err)
-        # a NaN makes its whole column NaN, as in the plain version
-        x = torch.randn((7, 5, 13), generator=g, device="cuda")
-        x[3, 2, 4] = float("nan")
-        yk = entmax_cuda.entmax_kernel(x, alpha, 1)
-        yp = entmax_cuda.entmax_plain(x, alpha, 1)
-        check(bool(yk[3, :, 4].isnan().all()) and int(yk.isnan().sum()) == 5
-              and torch.allclose(yk, yp, rtol=0, atol=tol, equal_nan=True),
-              f"entmax kernel vs plain on a NaN column at alpha={alpha}")
-        x = torch.randn(CRITEO_SHAPE, generator=g, device="cuda") * 3.0
-        ms = time_ms(lambda: entmax_cuda.entmax_kernel(x, alpha, 1))
-        incl_ms = host_incl_ms(lambda: entmax_cuda.entmax_kernel(x, alpha, 1))
-        plain_ms = time_ms(lambda: entmax_cuda.entmax_plain(x, alpha, 1),
-                           PLAIN_REPS, 1)
-        xf = torch.randn(FRAPPE_SHAPE, generator=g, device="cuda") * 3.0
-        frappe_ms = time_ms(lambda: entmax_cuda.entmax_kernel(xf, alpha, 1))
-        bound, by = entmax_bound_ms(CRITEO_SHAPE, alpha)
-        more = {}
-        for name, shape in (("diabetes", DIABETES_SHAPE),
-                            ("d100", LONG_SHAPES[1])):
-            xs = torch.randn(shape, generator=g, device="cuda") * 3.0
-            more[name] = {
-                "shape": list(shape),
-                "route": entmax_cuda.route_for(shape[1], shape[2], shape[0],
-                                               alpha),
-                "ms": time_ms(lambda: entmax_cuda.entmax_kernel(xs, alpha,
-                                                                1)),
-                "plain_ms": time_ms(lambda: entmax_cuda.entmax_plain(
-                    xs, alpha, 1), PLAIN_REPS, 1),
-                "bound_ms": entmax_bound_ms(shape, alpha)[0]}
-        stats[alpha] = {"ms": ms, "host_incl_ms": incl_ms,
-                        "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": by, "max_abs_err": max(errs),
-                        "frappe_ms": frappe_ms, **more}
-        log("kernel", name="entmax_fwd", alpha=alpha,
-            shape=list(CRITEO_SHAPE), axis=1,
-            route=entmax_cuda.route_for(39, 128, 4096, alpha), ms=ms,
-            host_incl_ms=incl_ms, plain_ms=plain_ms, bound_us=bound * 1e3,
-            bound_by=by, frappe_shape=list(FRAPPE_SHAPE),
-            frappe_route=entmax_cuda.route_for(10, 128, 4096, alpha),
-            frappe_ms=frappe_ms,
-            frappe_bound_us=entmax_bound_ms(FRAPPE_SHAPE, alpha)[0] * 1e3,
-            **more, checked_shapes=[list(c[0]) for c in cases],
-            max_abs_err=max(errs), tol=tol,
-            library="none: no single PyTorch call computes entmax")
-    return stats
+# the card tests (the command in tests/test_torch_cuda.py's docstring):
+# every kernel against its plain version, its launch path and its calls in
+# the ledger
+CARD_TESTS = ["-m", "pytest", "--noconftest", "-q", "tests/test_torch_cuda.py"]
+CARD_TESTS_TIMEOUT = 1800
 
 
-def phase_kernel_bwd():
-    """The entmax backward kernel against its plain version, y from the
-    forward kernel, at the forward phase's shapes and alphas (d 3-300, the
-    small-inner shapes among them), its device time at the Criteo, Frappe
-    and Diabetes130 steps and at d 100 beside the bound and the plain
-    version, with its route, registers, spills and blocks per SM."""
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    cases = [(CRITEO_SHAPE, 1), (FRAPPE_SHAPE, 1), ((8192, 39), -1),
-             ((7, 5, 13), 1), (DIABETES_SHAPE, 1),
-             *((shape, 1) for shape in LONG_SHAPES + PACKED_SHAPES)]
-    ptxas = {k: v for k, v in ptxas_report(build.build_log(
-        "entmax_bwd")).items() if k.startswith("entmax_bwd")}
-    tol = 2e-5
-    stats = {}
-    for alpha in ALPHAS:
-        errs = []
-        for shape, axis in cases:
-            y = entmax_cuda.entmax_kernel(
-                torch.randn(shape, generator=g, device="cuda") * 3.0, alpha,
-                axis)
-            dy = torch.randn(shape, generator=g, device="cuda")
-            dk = entmax_cuda.entmax_bwd_kernel(y, dy, alpha, axis)
-            dp = entmax_cuda.entmax_bwd_plain(y, dy, alpha, axis)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(dk).all()),
-                  f"entmax_bwd kernel non-finite at alpha={alpha} {shape}")
-            err = float((dk - dp).abs().max())
-            if alpha > 2.0 and shape in PACKED_SHAPES:
-                # g = y^(2 - alpha) is unbounded as y -> 0 and dx = dy*g -
-                # q*g cancels: past alpha 2 two float32 dx differ by more
-                # than tol on large draws, so a small-inner shape's dx is
-                # held to the float64 VJP within KERNELS_VS_PLAIN_RTOL of
-                # its norm
-                d64 = entmax_cuda.entmax_bwd_plain(y.double(), dy.double(),
-                                                   alpha, axis)
-                check(within(dk.double() - d64, d64, KERNELS_VS_PLAIN_RTOL,
-                             0.0),
-                      f"entmax_bwd kernel vs the float64 VJP at alpha="
-                      f"{alpha} {shape}: not within {KERNELS_VS_PLAIN_RTOL} "
-                      f"of its norm")
-            else:
-                check(err <= tol, f"entmax_bwd kernel vs plain at alpha="
-                                  f"{alpha} {shape}: {err} > {tol}")
-            errs.append(err)
-        # a NaN column of y gives a NaN column of dx, as in the plain version
-        x = torch.randn((7, 5, 13), generator=g, device="cuda")
-        x[3, 2, 4] = float("nan")
-        y = entmax_cuda.entmax_kernel(x, alpha, 1)
-        dy = torch.randn((7, 5, 13), generator=g, device="cuda")
-        dk = entmax_cuda.entmax_bwd_kernel(y, dy, alpha, 1)
-        dp = entmax_cuda.entmax_bwd_plain(y, dy, alpha, 1)
-        check(bool(dk[3, :, 4].isnan().all()) and int(dk.isnan().sum()) == 5
-              and torch.allclose(dk, dp, rtol=0, atol=tol, equal_nan=True),
-              f"entmax_bwd kernel vs plain on a NaN column at alpha={alpha}")
-        timed_at = {}
-        for name, shape in (("criteo", CRITEO_SHAPE), ("frappe", FRAPPE_SHAPE),
-                            ("diabetes", DIABETES_SHAPE),
-                            ("d100", LONG_SHAPES[1])):
-            y = entmax_cuda.entmax_kernel(
-                torch.randn(shape, generator=g, device="cuda") * 3.0,
-                alpha, 1)
-            dy = torch.randn(shape, generator=g, device="cuda")
-            numel = math.prod(shape)
-            bound_ms, by = bound(3 * 4 * numel,
-                                 entmax_bwd_ops_per_element(alpha) * numel)
-            timed_at[name] = {
-                "shape": list(shape),
-                "ms": time_ms(lambda: entmax_cuda.entmax_bwd_kernel(
-                    y, dy, alpha, 1)),
-                "host_incl_ms": host_incl_ms(
-                    lambda: entmax_cuda.entmax_bwd_kernel(y, dy, alpha, 1)),
-                "plain_ms": time_ms(lambda: entmax_cuda.entmax_bwd_plain(
-                    y, dy, alpha, 1), PLAIN_REPS, 1),
-                "bound_ms": bound_ms, "bound_by": by,
-                "route": entmax_cuda.bwd_route_for(shape[1], shape[2]),
-                "blocks_per_sm": entmax_cuda.bwd_blocks_per_sm(
-                    shape[1], alpha, shape[2])}
-        crit = timed_at.pop("criteo")
-        stats[alpha] = {**crit, "max_abs_err": max(errs), **timed_at}
-        log("kernel", name="entmax_bwd", alpha=alpha, axis=1, **crit,
-            **timed_at, ptxas=ptxas,
-            checked_shapes=[list(c[0]) for c in cases],
-            max_abs_err=max(errs), tol=tol,
-            library="none: no single PyTorch call computes the entmax VJP")
-    return stats
+def phase_card_tests():
+    """The card tests in a fresh process, on the libraries the build phase
+    made: fails the smoke where pytest exits non-zero. Logs pytest's last
+    line (the counts) and the seconds."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *CARD_TESTS], cwd=REPO,
+                       capture_output=True, text=True,
+                       timeout=CARD_TESTS_TIMEOUT)
+    lines = r.stdout.strip().splitlines()
+    log("card_tests", command=" ".join(["python", *CARD_TESTS]),
+        exit=r.returncode, result=lines[-1] if lines else None,
+        seconds=round(time.perf_counter() - t0, 3))
+    check(r.returncode == 0, f"the card tests exited {r.returncode}:\n"
+                             f"{r.stdout[-8000:]}\n{r.stderr[-2000:]}")
+
+
+# the times of a kernels/bench.py record, each timed on its own: the kernel
+# (ms, time_ms), its plain version, the composed path, the library, the
+# blocked route, and the bound
+TIMED_KEYS = ("ms", "time_ms", "plain_ms", "composed_ms", "library_ms",
+              "blocked_ms", "bound_ms")
+
+
+def phase_kernel_times():
+    """kernels/bench.py's sections in this process, one kernel_times line a
+    record: each kernel's device and host-inclusive ms beside its bound,
+    its plain version and the composed path or library, its routes,
+    registers, spills and blocks per SM. Each time of TIMED_KEYS that a
+    record holds is finite and > 0. Returns {section: [record]}."""
+    recs = {}
+    for name, section in bench.sections(arm1h_interaction).items():
+        with timed(f"kernel_times.{name}"):
+            recs[name] = list(section())
+        for rec in recs[name]:
+            log("kernel_times", section=name, **rec)
+            bad = {k: rec[k] for k in TIMED_KEYS if k in rec and not (
+                math.isfinite(rec[k]) and rec[k] > 0)}
+            check(not bad, f"kernel_times {name}: times {bad} in {rec}")
+    return recs
 
 
 def criteo_rows(rows, nfeat, nfield, seed):
@@ -570,7 +383,6 @@ def write_criteo_libsvm(path, rows, nfeat, nfield, seed):
 # writes a seeded stand-in: write_uci_letter)
 UCI_ROWS, UCI_FIELDS, UCI_CLASSES = 20_000, 16, 26
 UCI_BATCH, UCI_NFEAT = 512, 5500     # --batch_size 512; the CLI's nfeat
-UCI_ARM = (UCI_BATCH, UCI_FIELDS, 10, 10, 128)     # armnet_1h's K5/K6 step
 
 
 def write_uci_letter(root, seed=SEED):
@@ -601,244 +413,19 @@ def write_uci_letter(root, seed=SEED):
     return folder
 
 
-def phase_kernel_table_grad():
-    """The table-gradient kernels against their plain version (index_add_)
-    and against themselves (bitwise), on the train step's shapes: g
-    [4096*39, 10] and nrows 2.1M, and on the Criteo batch's ids at the
-    zoo's widths (bench.ZOO_WIDTHS: FeaturesLinear's E = 1, HOFM's E =
-    20), and on the UCI step's ids (16 live rows of 5,500, 512 updates
-    each). The plain version runs on a CPU copy of
-    the inputs, where index_add_ adds in the kernel's order: where no row
-    has more than scatter_cuda.CHUNK updates (which the kernel sums whole,
-    in that order) the result is held at rtol 1e-5, atol 1e-6; where one
-    has more (the Zipf cases, all ids equal; the kernel adds its pieces'
-    sums in order) at 1e-6 + 1e-5 * sum|g| over the row's updates, a bound
-    on any reordering of the sum. On the card index_add_'s atomics add in
-    no fixed order, so there every case is held to that bound. The radix
-    sort is held to a stable torch.sort (the same keys and permutation).
-    Timed on bench.table_grad_cases (a Criteo batch with ids uniform
-    within each field, the same Zipf-skewed, all ids equal) and on the
-    Criteo batch at E = 1 and 20 and the UCI step: the whole
-    call, its kernels' device time split into the sort (the key prep
-    folded into its first pass) and the zero fill with the segmented sums,
-    the PyTorch route it replaced (elementwise prep, stable torch.sort)
-    and zeros + index_add_, one PyTorch call for the same sums."""
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    nrows = CRITEO_NFEAT
-    timed_cases = table_grad_cases()
-    crit = timed_cases["criteo_batch"]
-    n = crit.numel()
-    cases = {name: (ids, nrows, 10) for name, ids in timed_cases.items()}
-    for e in ZOO_WIDTHS:
-        cases[f"criteo_batch_e{e}"] = (crit, nrows, e)
-    # the UCI step: every row's ids are its 16 column indices, so 512 rows
-    # put 16 segments of 512 into the 5,500-row default table
-    cases["uci_16_live"] = (torch.arange(
-        UCI_FIELDS, dtype=torch.int32, device="cuda").repeat(UCI_BATCH),
-        UCI_NFEAT, 10)
-    timed_names = set(cases)
-    cases["criteo_batch_int64"] = (crit.long(), nrows, 10)
-    cases["wrapped_and_dropped"] = (torch.randint(
-        -2 * nrows, 2 * nrows, (n,), generator=g, device="cuda",
-        dtype=torch.int32), nrows, 10)
-    cases["ragged_small"] = (torch.randint(
-        0, 3001, (37,), generator=g, device="cuda", dtype=torch.int32), 3001,
-        10)
-    errs, card_errs, out = [], [], {}
-    for name, (ids, rows, e) in cases.items():
-        gr = torch.randn((ids.shape[0], e), generator=g, device="cuda")
-        got = scatter_cuda.table_grad(gr, ids, rows)
-        again = scatter_cuda.table_grad(gr, ids, rows)
-        sid, perm = scatter_cuda.sort_ids(ids, rows)
-        want_sid, want_perm = scatter_cuda.sort_ids_plain(ids, rows)
-        want = scatter_cuda.table_grad_plain(gr.cpu(), ids.cpu(), rows)
-        card = scatter_cuda.table_grad_plain(gr, ids, rows)
-        spread = scatter_cuda.table_grad_plain(gr.abs(), ids, rows)
-        torch.cuda.synchronize()
-        keys = scatter_cuda.keys_plain(ids, rows)
-        longest = int(torch.bincount(keys[keys < rows]).max())
-        got_cpu = got.cpu()
-        err = float((got_cpu - want).abs().max())
-        card_err = float((got - card).abs().max())
-        if longest <= scatter_cuda.CHUNK:
-            check(torch.allclose(got_cpu, want, rtol=1e-5, atol=1e-6),
-                  f"table_grad kernel vs plain on {name}: max abs err {err}")
-        else:
-            check(bool(((got_cpu - want).abs()
-                        <= 1e-6 + 1e-5 * spread.cpu()).all()),
-                  f"table_grad kernel vs plain on {name} (a row of "
-                  f"{longest} updates): max abs err {err}")
-        check(bool(((got - card).abs() <= 1e-6 + 1e-5 * spread).all()),
-              f"table_grad kernel vs index_add_ on the card on {name}: "
-              f"max abs err {card_err}")
-        check(torch.equal(got, again),
-              f"table_grad kernel not bitwise deterministic on {name}")
-        check(torch.equal(sid, want_sid) and torch.equal(perm, want_perm),
-              f"radix sort vs stable torch.sort on {name}")
-        errs.append(err)
-        card_errs.append(card_err)
-        record = dict(case=name, n=int(ids.shape[0]), ids=str(ids.dtype),
-                      e=e, nrows=rows, longest_row=longest,
-                      max_abs_err_cpu_plain=err,
-                      max_abs_err_card_plain=card_err)
-        if name in timed_names:
-            with timed("table_grad.timing"):
-                times = table_grad_split(gr, ids, rows)
-            plain_ms = time_ms(lambda: scatter_cuda.table_grad_plain(
-                gr, ids, rows))
-            # each input read once (g f32, ids), the dense output written
-            # once; one add per update element
-            bound_ms, by = bound(4 * rows * e + 4 * gr.numel()
-                                 + ids.element_size() * ids.numel(),
-                                 gr.numel())
-            out[name] = {**times, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": by}
-            record.update(times, plain_ms=plain_ms,
-                          prep="folded into the radix sort's first pass",
-                          library="torch.zeros(nrows, E).index_add_(0, ids, "
-                                  "g)",
-                          bound_us=bound_ms * 1e3, bound_by=by)
-        log("kernel", name="table_grad", **record,
-            tol="rtol 1e-5, atol 1e-6 vs the CPU plain version (1e-6 + "
-                "1e-5 * sum|g| where a row has more than CHUNK updates); "
-                "1e-6 + 1e-5 * sum|g| vs index_add_ on the card; bitwise "
-                "equal to itself")
-    out["max_abs_err"] = max(errs)
-    out["max_abs_err_vs_index_add_on_card"] = max(card_errs)
-    return out
-
-
-def phase_kernel_arm():
-    """K5 and K6 against their plain versions on the card at the Criteo and
-    Frappe steps, a ragged batch, one row, more neurons than a block's 128
-    threads (O 200), a part of a block (O 96), F at the register bucket's
-    edge (16, 17), fewer rows than K6's grid, and embeddings wider than
-    K6's 16-wide register sums (Frappe at nemb 100 with h 10, Criteo's
-    fields at nemb 40), and past the 40-field register bucket (the columns
-    in shared memory): F 41, 64 and 128 at the cr_armnet1h widths, the
-    Diabetes130 step (B 1024, F 43) and the wide build at 43 fields, at
-    four alphas: the forward within rtol/atol 2e-5, the four gradients
-    within rtol 5e-4, atol 5e-5 (the JAX package's tolerances for its fused
-    kernel, tests/test_arm_pallas.py), and K6 equal to itself bit for bit.
-    Times at the Criteo and Diabetes130 steps and, at alpha 1.7, the UCI
-    armnet_1h step (B 512, F 16): kernel, plain version and
-    the composed path of --kernels auto (GEMMs, the entmax kernel, einsum
-    and exp, and its autograd backward), which is the yardstick: no single
-    PyTorch call computes this function."""
-    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    cases = [CRITEO_ARM, FRAPPE_ARM, (4095, 39, 10, 10, 128),
-             (1, 39, 10, 10, 128), (512, 39, 10, 10, 200),
-             (512, 39, 10, 10, 96), (512, 16, 10, 10, 128),
-             (512, 17, 10, 10, 128), (100, 39, 10, 10, 128),
-             FRAPPE_NEMB100_ARM, (512, 39, 40, 40, 128),
-             (256, 41, 10, 10, 128), DIABETES_ARM, (256, 64, 10, 10, 128),
-             (128, 128, 10, 10, 128), (64, 43, 33, 20, 130)]
-    stats = {}
-    for alpha in ALPHAS:
-        ferrs, berrs = [], []
-        for shape in cases:
-            emb, wk, q, vt, dout = arm_inputs(g, shape)
-            out = arm_cuda.arm1h_fwd_kernel(emb, wk, q, vt, alpha)
-            want = arm_cuda.arm1h_fwd_plain(emb, wk, q, vt, alpha)
-            grads = arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha)
-            again = arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout, alpha)
-            gwant = arm_cuda.arm1h_bwd_plain(emb, wk, q, vt, dout, alpha)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(out).all()),
-                  f"arm1h_fwd kernel non-finite at alpha={alpha} {shape}")
-            ferrs.append(float((out - want).abs().max()))
-            check(torch.allclose(out, want, rtol=2e-5, atol=2e-5),
-                  f"arm1h_fwd kernel vs plain at alpha={alpha} {shape}: "
-                  f"max abs err {ferrs[-1]}")
-            for name, a, b, c in zip(("de", "dwk", "dq", "dvt"), grads,
-                                     again, gwant):
-                berrs.append(float((a - c).abs().max()))
-                check(torch.allclose(a, c, rtol=5e-4, atol=5e-5),
-                      f"arm1h_bwd kernel {name} vs plain at alpha={alpha} "
-                      f"{shape}: max abs err {berrs[-1]}")
-                check(torch.equal(a, b), f"arm1h_bwd kernel {name} not "
-                                         f"bitwise deterministic at "
-                                         f"alpha={alpha} {shape}")
-        steps = [("criteo", CRITEO_ARM), ("diabetes", DIABETES_ARM)]
-        if alpha == 1.7:
-            steps.append(("uci", UCI_ARM))
-        for step, shape in steps:
-            stats.update(arm_step_times(g, step, shape, alpha, ferrs, berrs))
-    return stats
-
-
-def arm_step_times(g, step, shape, alpha, ferrs, berrs):
-    """{(kind, alpha) or (kind, alpha, step): record} of K5 and K6 at one
-    step's shape: kernel, host-inclusive, plain and composed times, the
-    bound, blocks per SM and K6's grid, and at the Criteo step K6's split
-    by torch.profiler; logged as kernel_arm lines. The Criteo step's
-    records take the plain keys."""
-    rows, f, e, dk, o = shape
-    stats = {}
-    emb, wk, q, vt, dout = arm_inputs(g, shape)
-    leaves = [t.clone().requires_grad_() for t in (emb, wk, q, vt)]
-    composed = arm1h_interaction(leaves[0], leaves[1], leaves[2],
-                                 leaves[3].t(), alpha)
-    times = {
-        "fwd": (lambda: arm_cuda.arm1h_fwd_kernel(emb, wk, q, vt, alpha),
-                lambda: arm_cuda.arm1h_fwd_plain(emb, wk, q, vt, alpha),
-                lambda: arm1h_interaction(emb, wk, q, vt.t(), alpha)),
-        "bwd": (lambda: arm_cuda.arm1h_bwd_kernel(emb, wk, q, vt, dout,
-                                                  alpha),
-                lambda: arm_cuda.arm1h_bwd_plain(emb, wk, q, vt, dout,
-                                                 alpha),
-                lambda: torch.autograd.grad(composed, leaves, dout,
-                                            retain_graph=True))}
-    bounds = fused_arm_bounds(shape, alpha)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    grid = arm_cuda.bwd_grid(rows, f, e, dk, o, alpha, emb.device)
-    launch = {"fwd": {"blocks_per_sm": arm_cuda.fwd_blocks_per_sm(
-                  f, e, dk, o, alpha)},
-              "bwd": {"blocks_per_sm": arm_cuda.bwd_blocks_per_sm(
-                  f, e, dk, o, alpha), "grid": grid,
-                  "grid_blocks_per_sm": grid / sms}}
-    if step == "criteo":
-        launch["bwd"].update(arm_bwd_split(emb, wk, q, vt, dout, alpha))
-    for kind, errs in (("fwd", ferrs), ("bwd", berrs)):
-        kernel, plain, comp = times[kind]
-        ms, plain_ms, composed_ms = (time_ms(kernel),
-                                     time_ms(plain, PLAIN_REPS, 1),
-                                     time_ms(comp))
-        incl_ms = host_incl_ms(kernel)
-        bound_ms, by, nbytes, nops = bounds[kind]
-        key = (kind, alpha) if step == "criteo" else (kind, alpha, step)
-        stats[key] = {
-            "ms": ms, "host_incl_ms": incl_ms, "plain_ms": plain_ms,
-            "composed_ms": composed_ms, "bound_ms": bound_ms,
-            "bound_by": by, "max_abs_err": max(errs), **launch[kind]}
-        log("kernel_arm", name=f"arm1h_{kind}", alpha=alpha, step=step,
-            shape=dict(zip("BFEDO", shape)), ms=ms,
-            host_incl_ms=incl_ms, plain_ms=plain_ms, composed_ms=composed_ms,
-            bound_us=bound_ms * 1e3, bound_by=by, bytes=nbytes,
-            f32_instruction_slots=nops, max_abs_err=max(errs),
-            **launch[kind],
-            tol="rtol/atol 2e-5" if kind == "fwd" else
-                "rtol 5e-4, atol 5e-5; bitwise equal to itself",
-            library="none: no single PyTorch call computes the fused "
-                    "ARM-1h interaction; composed_ms is the port's "
-                    "--kernels auto path on the card")
-    del composed, leaves
-    return stats
-
-
 def run_predict(ckpt, inp, out, expect_rows, kernel="entmax_fwd",
                 cin_layers=0):
-    """predict.main on the card with the kernel counts set to 0 just before
-    and read just after; checks rows, finite scores and launches: `kernel`
+    """predict.main on the card, its kernel calls read from the ledger
+    around it; checks rows, finite scores and calls: `kernel`
     once per batch (entmax_fwd under auto, arm1h_fwd under pallas-fused,
     which predict restores from the checkpoint's sidecar), and K8's
     forward `cin_layers` times per batch (cin and xdfm), no other; none but
     K8's where `kernel` is None (a model without entmax)."""
-    zero_counts()
+    before = kernel_calls()
     with contextlib.redirect_stdout(io.StringIO()), timed("predict"):
         summary = predict.main(["--ckpt", ckpt, "--input", inp, "--output",
                                 out, "--device", "cuda"])
-    counts = read_counts()
+    counts = kernel_calls(before)
     scores = np.loadtxt(out, ndmin=1)
     check(summary["rows"] == expect_rows == scores.shape[0],
           f"predict scored {summary['rows']} rows ({scores.shape[0]} "
@@ -848,7 +435,7 @@ def run_predict(ckpt, inp, out, expect_rows, kernel="entmax_fwd",
     if kernel is not None:
         want[kernel] = summary["batches"]
     want["cin_fwd"] = summary["batches"] * cin_layers
-    check(counts == want, f"predict launched {counts} over "
+    check(counts == want, f"predict called {counts} over "
                           f"{summary['batches']} batches, expected {want}")
     return summary, counts[kernel] if kernel is not None else 0
 
@@ -910,7 +497,7 @@ def phase_serve_criteo(tmp):
     inp = os.path.join(tmp, "criteo_synth.libsvm")
     with timed("write_libsvm"):
         write_criteo_libsvm(inp, rows, CRITEO_NFEAT, 39, SEED)
-    launches_total = 0
+    calls_total = 0
     for ensemble in (False, True):
         cfg = criteo_config(ensemble)
         ckpt = os.path.join(tmp, f"ckpt_criteo_ens{int(ensemble)}")
@@ -919,16 +506,16 @@ def phase_serve_criteo(tmp):
         runs = []
         for _ in range(4):              # the first call includes warm-up
             runs.append(run_predict(ckpt, inp, out, rows))
-            launches_total += runs[-1][1]
+            calls_total += runs[-1][1]
         err = first_batch_logit_err(ckpt, cfg, inp)
-        for i, (s, launches) in enumerate(runs):
+        for i, (s, calls) in enumerate(runs):
             log("serve", width="cr_armnet1h", ensemble=ensemble,
                 call="cold" if i == 0 else "warm", rows=s["rows"],
-                batches=s["batches"], launches=launches,
+                batches=s["batches"], calls=calls,
                 rows_per_s=s["rows"] / s["score_seconds"],
                 ms_per_batch=s["score_seconds"] / s["batches"] * 1e3,
                 auc=s.get("auc"), gpu_vs_cpu_logit_err=err)
-    return inp, launches_total
+    return inp, calls_total
 
 
 def phase_serve_fused(tmp, inp):
@@ -950,15 +537,15 @@ def phase_serve_fused(tmp, inp):
     auto_err = float((lf - la).abs().max())
     check(torch.allclose(lf, la, rtol=1e-4, atol=1e-5),
           f"pallas-fused vs auto logits on the card differ by {auto_err}")
-    for i, (s, launches) in enumerate(runs):
+    for i, (s, calls) in enumerate(runs):
         log("serve_fused", width="cr_armnet1h", ensemble=False,
             kernels="pallas-fused", call="cold" if i == 0 else "warm",
-            rows=s["rows"], batches=s["batches"], arm1h_fwd_launches=launches,
+            rows=s["rows"], batches=s["batches"], arm1h_fwd_calls=calls,
             rows_per_s=s["rows"] / s["score_seconds"],
             ms_per_batch=s["score_seconds"] / s["batches"] * 1e3,
             auc=s.get("auc"), gpu_vs_cpu_logit_err=err,
             fused_vs_auto_logit_err=auto_err)
-    return sum(launches for _, launches in runs)
+    return sum(calls for _, calls in runs)
 
 
 def phase_serve_frappe(tmp):
@@ -967,14 +554,14 @@ def phase_serve_frappe(tmp):
     ckpt = os.path.join(tmp, "ckpt_frappe")
     save_checkpoint(create_model(cfg, seed=SEED), cfg, ckpt, "best")
     inp = os.path.join(REPO, "data", "frappe", "test.libsvm")
-    summary, launches = run_predict(ckpt, inp,
+    summary, calls = run_predict(ckpt, inp,
                                     os.path.join(tmp, "frappe.scores"), 14430)
     err = first_batch_logit_err(ckpt, cfg, inp)
     log("frappe", rows=summary["rows"], batches=summary["batches"],
-        launches=launches, auc=summary.get("auc"),
+        calls=calls, auc=summary.get("auc"),
         rows_per_s=summary["rows"] / summary["score_seconds"],
         gpu_vs_cpu_logit_err=err)
-    return launches
+    return calls
 
 
 def phase_profile(inp):
@@ -1008,14 +595,14 @@ def phase_profile(inp):
 
 
 def run_cli(argv):
-    """train.cli.main with the counts set to 0 just before and read just
-    after; its log lines go to the run's stdout.log only."""
-    zero_counts()
+    """train.cli.main and its kernel calls, read from the ledger around it;
+    its log lines go to the run's stdout.log only."""
+    before = kernel_calls()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         results = cli.main(argv)
     torch.cuda.synchronize()
-    return results, read_counts(), time.perf_counter() - t0
+    return results, kernel_calls(before), time.perf_counter() - t0
 
 
 def train_losses(log_path):
@@ -1136,18 +723,11 @@ def bn_tap(model, inputs, outputs=None, pin=None):
             h.remove()
 
 
-# each kernel wrapper: (module, wrapper's name, plain version's name, the
-# name of its launches: read_counts', or bn_cuda's wrapper for K9)
-KERNEL_WRAPPERS = (
-    (entmax_cuda, "entmax_kernel", "entmax_plain", "entmax_fwd"),
-    (entmax_cuda, "entmax_bwd_kernel", "entmax_bwd_plain", "entmax_bwd"),
-    (scatter_cuda, "table_grad", "table_grad_plain", "table_grad"),
-    (arm_cuda, "arm1h_fwd_kernel", "arm1h_fwd_plain", "arm1h_fwd"),
-    (arm_cuda, "arm1h_bwd_kernel", "arm1h_bwd_plain", "arm1h_bwd"),
-    (cin_cuda, "cin_fwd", "cin_fwd_plain", "cin_fwd"),
-    (cin_cuda, "cin_bwd", "cin_bwd_plain", "cin_bwd"),
-    (bn_cuda, "bn_fwd", "bn_fwd_plain", "bn_fwd"),
-    (bn_cuda, "bn_bwd", "bn_bwd_plain", "bn_bwd"))
+# each kernel wrapper: (module, wrapper's name, plain version's name, its
+# call's name in the ledger), from build.KERNELS
+KERNEL_WRAPPERS = tuple(
+    (importlib.import_module(f"armnet_tpu_torch.kernels.{mod}"), *names)
+    for mod, *names in build.KERNELS)
 
 
 @contextlib.contextmanager
@@ -1198,18 +778,6 @@ def one_step_grads(state, cfg, batch, device, probes=(), tap=None):
         return (loss.item(), logits.detach().float().cpu(),
                 {n: p.grad.cpu() for n, p in model.named_parameters()},
                 seen, u_kappa(tap[0], model))
-
-
-def within(delta, ref, rtol, atol=1e-6):
-    """||delta|| <= atol * sqrt(numel) + rtol * ||ref|| (2-norms)."""
-    return float(delta.norm()) <= (atol * delta.numel() ** 0.5
-                                   + rtol * float(ref.norm()))
-
-
-# the kernels against their plain versions inside one train step on the
-# card: the loss and each clamped gradient, norm-wise (largest gradient gap
-# read 8.4e-7 over every phase, the loss 0)
-KERNELS_VS_PLAIN_RTOL = 1e-5
 
 
 # the GPU-vs-CPU train loss under --bf16: XLA-free, but the card's and the
@@ -1483,11 +1051,11 @@ def criteo_split(tmp):
 
 def phase_train(tmp, data, first):
     """cli.main at Criteo width, ensemble off and on under auto, and
-    ensemble off under pallas-fused: launches, losses, the GPU-vs-CPU
+    ensemble off under pallas-fused: calls, losses, the GPU-vs-CPU
     step, then the warm rate and, ensemble off, the train-step profile."""
     steps = 2 * TRAIN_BATCHES
     evals = 2 * 2 * -(-EVAL_ROWS // 4096)
-    totals = dict.fromkeys(read_counts(), 0)
+    totals = dict.fromkeys(kernel_calls(), 0)
     for ensemble, kernels in ((False, "auto"), (True, "auto"),
                               (False, "pallas-fused")):
         fused = kernels == "pallas-fused"
@@ -1505,7 +1073,7 @@ def phase_train(tmp, data, first):
         if fused:
             want.update(entmax_fwd=0, entmax_bwd=0, arm1h_fwd=steps + evals,
                         arm1h_bwd=steps)
-        check(counts == want, f"train launches {counts}, expected {want} "
+        check(counts == want, f"train calls {counts}, expected {want} "
                               f"({steps} steps, {evals} eval batches)")
         losses, means = train_losses(os.path.join(
             tmp, "log", f"{exp}_{SEED}", "stdout.log"))
@@ -1524,7 +1092,7 @@ def phase_train(tmp, data, first):
         # which restores the run's --kernels from the sidecar
         score_kernel = "arm1h_fwd" if fused else "entmax_fwd"
         with timed("train.predict"):
-            scored, score_launches = run_predict(
+            scored, score_calls = run_predict(
                 ckpt, os.path.join(data, "criteo", "valid.libsvm"),
                 os.path.join(tmp, f"{exp}.scores"), EVAL_ROWS, score_kernel)
         with timed("train.gpu_vs_cpu"):
@@ -1542,12 +1110,12 @@ def phase_train(tmp, data, first):
         with timed("train.warm_rate"):
             rates, ms_step, trainer = warm_train_rate(cfg, data)
         log("train", width="cr_armnet1h", ensemble=ensemble, kernels=kernels,
-            steps=steps, eval_batches=evals, launches=counts,
+            steps=steps, eval_batches=evals, calls=counts,
             per_step={k: counts[k] / steps for k in counts},
             cli_seconds=seconds, first_step_loss=flat[0],
             valid_auc=[r["valid"] for r in rows],
             predict_best={"rows": scored["rows"], "auc": scored.get("auc"),
-                          "launches": score_launches},
+                          "calls": score_calls},
             epoch_mean_loss=means, warm_rows_per_s=rates,
             warm_ms_per_step=ms_step,
             gpu_vs_cpu={k: gap[k] for k in (
@@ -1555,7 +1123,7 @@ def phase_train(tmp, data, first):
                 "max_grad_rel_gap", "support_flip_columns", "pinned")})
         for k in totals:
             totals[k] += counts[k]
-        totals[score_kernel] += score_launches
+        totals[score_kernel] += score_calls
         if not ensemble:
             phase_profile_train(trainer, first, cfg)
         del trainer
@@ -1612,7 +1180,7 @@ def phase_frappe_train(tmp):
     log("frappe_train", epochs=len(rows), valid_auc=valid,
         test_auc=[r["test"] for r in rows], train_auc=[r["train"] for r in rows],
         jax_valid_auc=list(FRAPPE_JAX_VALID), seconds=seconds,
-        launches=counts)
+        calls=counts)
     check(len(rows) == 3 and valid[-1] >= 0.85,
           f"Frappe valid AUC after 3 epochs {valid} (needs >= 0.85)")
     return counts
@@ -1622,7 +1190,7 @@ def phase_diabetes_train(tmp):
     """3 epochs of the db_armnet1h recipe (armnet_tpu/utils/presets.py: 43
     fields, alpha 1.7, batch 1024) through cli.main on the bundled
     data/uci_diabetes/ split, under --kernels auto and pallas-fused: the
-    kernel launches per step (K2/K4 under auto, K5/K6 under pallas-fused,
+    kernel calls per step (K2/K4 under auto, K5/K6 under pallas-fused,
     their 43 fields past the fused kernels' 40-field register bucket),
     finite step losses whose last epoch's mean is below the first's, one
     step from the run's checkpoint on the card against the CPU (loss 1e-5
@@ -1636,7 +1204,7 @@ def phase_diabetes_train(tmp):
     first = next(iter(loaders["train"]))
     steps = 3 * len(loaders["train"])
     evals = 3 * (len(loaders["valid"]) + len(loaders["test"]))
-    totals = dict.fromkeys(read_counts(), 0)
+    totals = dict.fromkeys(kernel_calls(), 0)
     for kernels in ("auto", "pallas-fused"):
         exp = f"diabetes_{kernels}"
         flags = DIABETES_FLAGS + ["--kernels", kernels]
@@ -1652,7 +1220,7 @@ def phase_diabetes_train(tmp):
         if kernels == "pallas-fused":
             want.update(entmax_fwd=0, entmax_bwd=0, arm1h_fwd=steps + evals,
                         arm1h_bwd=steps)
-        check(counts == want, f"diabetes launches {counts}, expected {want} "
+        check(counts == want, f"diabetes calls {counts}, expected {want} "
                               f"({steps} steps, {evals} eval batches)")
         losses, means = train_losses(os.path.join(
             tmp, "log", f"{exp}_{SEED}", "stdout.log"))
@@ -1669,7 +1237,7 @@ def phase_diabetes_train(tmp):
             gap = gpu_vs_cpu_step(os.path.join(tmp, "ckpt", f"{exp}_{SEED}"),
                                   cfg, first, pinned="both")
         log("diabetes_train", recipe="db_armnet1h", kernels=kernels,
-            steps=steps, eval_batches=evals, launches=counts,
+            steps=steps, eval_batches=evals, calls=counts,
             per_step={k: counts[k] / steps for k in counts},
             cli_seconds=seconds, first_step_loss=flat[0],
             epoch_mean_loss=means, valid_auc=[r["valid"] for r in rows],
@@ -1709,7 +1277,7 @@ def phase_diabetes_parity(tmp):
     epochs, curves = ref["epochs"], ref["valid_auc"]
     jax_curve, cpu_curve = curves["jax"], curves["port_from_jax_init"]
     data = os.path.join(REPO, "data")
-    totals = dict.fromkeys(read_counts(), 0)
+    totals = dict.fromkeys(kernel_calls(), 0)
     for kernels in ("auto", "pallas-fused"):
         cfg = flags_config(DIABETES_FLAGS + ["--kernels", kernels,
                                              "--data_dir", data])
@@ -1722,12 +1290,12 @@ def phase_diabetes_parity(tmp):
         trainer = Trainer(cfg, *loaders, logger, seed=SEED,
                           metrics_path=os.path.join(exp, "metrics.jsonl"))
         trainer.state.model.load_state_dict(from_jax_arrays(init, cfg))
-        zero_counts()
+        before = kernel_calls()
         t0 = time.perf_counter()
         trainer.fit(epochs, patience=epochs, report_freq=1)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = read_counts()
+        counts = kernel_calls(before)
         remove_logger(logger)
         steps = epochs * len(loaders[0])
         evals = epochs * (len(loaders[1]) + len(loaders[2]))
@@ -1735,7 +1303,7 @@ def phase_diabetes_parity(tmp):
         want = zoo_want(steps, evals, entmax=not fused, tables=1, bns=1)
         if fused:
             want.update(arm1h_fwd=steps + evals, arm1h_bwd=steps)
-        check(counts == want, f"diabetes_parity launches {counts}, expected "
+        check(counts == want, f"diabetes_parity calls {counts}, expected "
                               f"{want} ({steps} steps, {evals} eval batches)")
         losses, means = train_losses(os.path.join(exp, "stdout.log"))
         flat = [x for ep in losses for x in ep]
@@ -1759,7 +1327,7 @@ def phase_diabetes_parity(tmp):
                 "jax_cpu": first_epoch_past(jax_curve),
                 "port_cpu": first_epoch_past(cpu_curve)},
             epoch_mean_loss=means, steps=steps, eval_batches=evals,
-            launches=counts, seconds=seconds, jax=ref["versions"]["jax"])
+            calls=counts, seconds=seconds, jax=ref["versions"]["jax"])
         check(len(valid) == epochs and abs(best_gap) <= PARITY_BEST_ATOL,
               f"diabetes_parity ({kernels}): best valid AUC {max(valid)} "
               f"against the JAX package's {max(jax_curve)} from the same "
@@ -1769,276 +1337,34 @@ def phase_diabetes_parity(tmp):
     return totals
 
 
-# the multi-head presets' channel counts C = nattn_head * h on the entmax
-# kernels' inner axis, and a ragged 6 (the packed routes' thread loads)
-MULTIHEAD_C = (6, 8, 16, 32, 64, 256, 512)
-# the UCI armnet step: 4 heads x 128 neurons over 16 fields, batch 512
-UCI_ARMNET_SHAPE = (UCI_BATCH, UCI_FIELDS, 4 * 128)
-# the timed steps: (name, the gates [B, F, C], alpha) of the presets
-MULTIHEAD_STEPS = (("cr_armnet", CR_ARMNET_SHAPE, 2.0),
-                   ("db_armnet", DB_ARMNET_SHAPE, 1.7),
-                   ("uci_armnet", UCI_ARMNET_SHAPE, 1.7),
-                   ("av_armnet", AV_ARMNET_SHAPE, 1.5),
-                   ("av_armnet+", AV_ARMNET_PLUS_SHAPE, 2.0),
-                   ("frappe_armnet+", FRAPPE_ARMNET_PLUS_SHAPE, 1.5),
-                   ("ml_armnet+", ML_ARMNET_PLUS_SHAPE, 2.5))
-
-
-# rows of the xdfm_criteo step that K8 is held to its plain version on (the
-# plain version's outer product of 4,096 rows is 0.25-1.3 GB a layer), and
-# the tolerance: float32 sums of the F * C products (of the rows too, in
-# dW) in another order, 2e-5 of the largest entry (tests/test_torch_cuda.py
-# holds the same against float64)
-CIN_CHECK_ROWS = 4096
-CIN_ATOL = 2e-5
-
-
-def phase_kernel_cin():
-    """K8 at the xdfm_criteo step's layers (bench.CIN_LAYERS: 65,536 rows,
-    E 10, 39 fields, C 39 and 200, 200 maps) in full float32 (TF32 off):
-    the forward on every row, its first CIN_CHECK_ROWS rows against the
-    plain version on those rows; the backward's dx0 and dxk there against
-    the plain version's, and dW against the plain version summed over
-    blocks of CIN_CHECK_ROWS rows (the ReLU mask from the kernel's output
-    on both sides); each within CIN_ATOL of its largest entry; the
-    backward twice, bitwise equal; one forward and cin_cuda.bwd_launches
-    launches a call. Then bench.bench_cin's device times beside the bound,
-    the plain version and the blocked route. The matmul settings are
-    restored after. Returns {(kind, C): record}."""
-    tf32, precision = (torch.backends.cuda.matmul.allow_tf32,
-                       torch.get_float32_matmul_precision())
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    rows, recs = CIN_CHECK_ROWS, {}
-    try:
-        g = torch.Generator(device="cuda").manual_seed(SEED + 8)
-        for shape in bench.CIN_LAYERS:
-            b, e, f, c, n = shape
-            x0, xk, w, dout = bench.cin_inputs(g, shape)
-            zero_counts()
-            out = cin_cuda.cin_fwd(x0, xk, w)
-            grads = cin_cuda.cin_bwd(x0, xk, w, out, dout)
-            again = cin_cuda.cin_bwd(x0, xk, w, out, dout)
-            torch.cuda.synchronize()
-            counts = read_counts()
-            want_bwd = 2 * cin_cuda.bwd_launches(b * e, f, c, n)
-            check(counts == {**dict.fromkeys(counts, 0), "cin_fwd": 1,
-                             "cin_bwd": want_bwd},
-                  f"K8 at {shape} launched {counts}")
-            check(all(torch.equal(u, v) for u, v in zip(grads, again)),
-                  f"K8's backward at {shape}: two calls differ")
-            ref = cin_cuda.cin_fwd_plain(x0[:rows], xk[:rows], w)
-            dx0, dxk, dw = cin_cuda.cin_bwd_plain(
-                x0[:rows], xk[:rows], w, out[:rows], dout[:rows])
-            for s0 in range(rows, b, rows):
-                dw += cin_cuda.cin_bwd_plain(
-                    x0[s0:s0 + rows], xk[s0:s0 + rows], w,
-                    out[s0:s0 + rows], dout[s0:s0 + rows])[2]
-            errs = {}
-            for name, got, want in (("out", out[:rows], ref),
-                                    ("dx0", grads[0][:rows], dx0),
-                                    ("dxk", grads[1][:rows], dxk),
-                                    ("dw", grads[2], dw)):
-                errs[name] = float((got - want).abs().max()
-                                   / want.abs().max())
-            check(all(v <= CIN_ATOL for v in errs.values()),
-                  f"K8 at {shape} against its plain version: gaps over the "
-                  f"largest entry {errs} (limit {CIN_ATOL})")
-            check(bool((out == 0).any() and (out > 0).any()),
-                  f"K8 at {shape}: the ReLU cut no output or every one")
-            recs[("check", c)] = {"errs": errs, "launches": counts}
-            del x0, xk, w, dout, out, grads, again, ref, dx0, dxk, dw
-            torch.cuda.empty_cache()
-        for rec in bench.bench_cin():
-            kind = next((k for k in ("fwd", "bwd") if f"cin_{k}" in rec),
-                        None)
-            if kind is not None:
-                recs[(kind, rec[f"cin_{kind}"]["C"])] = rec
-            else:
-                recs["ptxas"] = rec["cin_ptxas"]
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.set_float32_matmul_precision(precision)
-    for kind in ("fwd", "bwd"):
-        for c in (39, 200):
-            r = recs[(kind, c)]
-            check(all(math.isfinite(r[k]) and r[k] > 0 for k in (
-                "time_ms", "plain_ms", "blocked_ms", "bound_ms")),
-                  f"K8 {kind} at C {c}: times {r}")
-            log("kernel_cin", kind=kind, C=c, **r,
-                max_rel_err=max(recs[("check", c)]["errs"].values()))
-    log("kernel_cin", ptxas=recs["ptxas"],
-        checks={c: recs[("check", c)] for c in (39, 200)})
-    return recs
-
-
-def phase_kernel_bn():
-    """K9 at bench.BN_SHAPES, masked as the trainer calls it, an eighth of
-    the rows pad rows of outliers (50): the forward and backward against
-    the plain version on the same inputs (y, mean, rstd, the running
-    statistics, dx, dweight, dbias), each norm-wise within
-    KERNELS_VS_PLAIN_RTOL; both twice, bitwise equal; bn_cuda's launches a
-    call. Then bench.bench_bn's times beside the bound, the plain version,
-    the composed path and F.batch_norm. Returns {name: record}."""
-    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    recs = {}
-    for name, shape in bench.BN_SHAPES:
-        n, c, s = shape
-        x, dy, rows, _, weight, bias = bench.bn_inputs(g, shape)
-        rows[-(n // 8):] = 0.0
-        x[rows == 0] = 50.0
-        args = (rows, rows.sum(), s)
-        runs = []
-        for fwd, bwd in ((bn_cuda.bn_fwd, bn_cuda.bn_bwd),
-                         (bn_cuda.bn_fwd, bn_cuda.bn_bwd),
-                         (bn_cuda.bn_fwd_plain, bn_cuda.bn_bwd_plain)):
-            rm = torch.zeros(c, device="cuda")
-            rv = torch.ones(c, device="cuda")
-            before = (bn_cuda.LAUNCHES, bn_cuda.BWD_LAUNCHES)
-            y, mean, rstd = fwd(x, *args, weight, bias, rm, rv, 1e-5, 0.9)
-            grads = bwd(x, dy, *args, weight, mean, rstd)
-            launched = (bn_cuda.LAUNCHES - before[0],
-                        bn_cuda.BWD_LAUNCHES - before[1])
-            runs.append(([y, mean, rstd, rm, rv, *grads], launched))
-        torch.cuda.synchronize()
-        (got, launched), (again, _), (want, _) = runs
-        names = ("y", "mean", "rstd", "running_mean", "running_var", "dx",
-                 "dweight", "dbias")
-        gaps = {k: float((a - b).norm() / b.norm().clamp_min(1e-30))
-                for k, a, b in zip(names, got, want)}
-        check(all(within(a - b, b, KERNELS_VS_PLAIN_RTOL, 0.0)
-                  for a, b in zip(got, want)),
-              f"K9 at {shape} against its plain version: {gaps}")
-        check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"K9 at {shape}: two calls differ")
-        check(launched == (bn_cuda.FWD_CALL_LAUNCHES,
-                           bn_cuda.BWD_CALL_LAUNCHES),
-              f"K9 at {shape} launched {launched}")
-        recs[("check", name)] = {"rel_gaps": gaps, "launches": launched}
-        del x, dy, rows, runs, got, again, want
-        torch.cuda.empty_cache()
-    for rec in bench.bench_bn():
-        kind = next((k for k in ("fwd", "bwd") if f"bn_{k}" in rec), None)
-        if kind is None:
-            recs["ptxas"] = rec["bn_ptxas"]
-            continue
-        recs[(kind, rec[f"bn_{kind}"])] = rec
-        check(all(math.isfinite(rec[k]) and rec[k] > 0 for k in (
-            "time_ms", "plain_ms", "composed_ms", "library_ms",
-            "bound_ms")),
-              f"K9 {kind} at {rec[f'bn_{kind}']}: times {rec}")
-        log("kernel_bn", kind=kind, **rec,
-            max_rel_gap=max(recs[("check", rec[f"bn_{kind}"])][
-                "rel_gaps"].values()))
-    log("kernel_bn", ptxas=recs["ptxas"],
-        checks={name: recs[("check", name)] for name, _ in bench.BN_SHAPES})
-    return recs
-
-
-def phase_kernel_multihead():
-    """K2 and K4 against their plain versions on [256, F, C] at F 39 and 43,
-    C in MULTIHEAD_C and the four alphas, at the tolerances of the kernel
-    phases; then both held to their plain versions at those tolerances and
-    timed at each of MULTIHEAD_STEPS beside the plain versions and the
-    bounds, with each kernel's route and blocks per SM. Returns
-    {"fwd"|"bwd": {step: record}}, each record's max_abs_err that of its
-    own step."""
-    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    errs = {"fwd": [], "bwd": []}
-    for alpha in ALPHAS:
-        ftol = 5e-6 if alpha <= 2.0 else 1e-5
-        for f in (39, 43):
-            for c in MULTIHEAD_C:
-                x = torch.randn((256, f, c), generator=g, device="cuda") * 3.0
-                yk = entmax_cuda.entmax_kernel(x, alpha, 1)
-                yp = entmax_cuda.entmax_plain(x, alpha, 1)
-                dy = torch.randn((256, f, c), generator=g, device="cuda")
-                dk = entmax_cuda.entmax_bwd_kernel(yk, dy, alpha, 1)
-                dp = entmax_cuda.entmax_bwd_plain(yk, dy, alpha, 1)
-                torch.cuda.synchronize()
-                for kind, got, want, tol in (("fwd", yk, yp, ftol),
-                                             ("bwd", dk, dp, 2e-5)):
-                    err = float((got - want).abs().max())
-                    check(bool(torch.isfinite(got).all()) and err <= tol,
-                          f"entmax_{kind} kernel vs plain at alpha={alpha} "
-                          f"[256, {f}, {c}]: {err} > {tol}")
-                    errs[kind].append(err)
-    out = {"fwd": {}, "bwd": {}}
-    for step, shape, alpha in MULTIHEAD_STEPS:
-        x = torch.randn(shape, generator=g, device="cuda") * 3.0
-        y = entmax_cuda.entmax_kernel(x, alpha, 1)
-        dy = torch.randn(shape, generator=g, device="cuda")
-        dx = entmax_cuda.entmax_bwd_kernel(y, dy, alpha, 1)
-        err = {}
-        for kind, got, want, tol in (
-                ("fwd", y, entmax_cuda.entmax_plain(x, alpha, 1),
-                 1e-5 if alpha > 2.0 else 5e-6),
-                ("bwd", dx, entmax_cuda.entmax_bwd_plain(y, dy, alpha, 1),
-                 2e-5)):
-            err[kind] = float((got - want).abs().max())
-            check(bool(torch.isfinite(got).all()) and err[kind] <= tol,
-                  f"entmax_{kind} kernel vs plain at alpha={alpha} "
-                  f"{list(shape)}: {err[kind]} > {tol}")
-        numel = math.prod(shape)
-        fbound, fby = entmax_bound_ms(shape, alpha)
-        bbound, bby = bound(3 * 4 * numel,
-                            entmax_bwd_ops_per_element(alpha) * numel)
-        b, f, c = shape
-        out["fwd"][step] = {
-            "shape": list(shape), "alpha": alpha,
-            "route": entmax_cuda.route_for(f, c, b, alpha),
-            "blocks_per_sm": entmax_cuda.fwd_blocks_per_sm(f, c, b, alpha),
-            "ms": time_ms(lambda: entmax_cuda.entmax_kernel(x, alpha, 1)),
-            "plain_ms": time_ms(lambda: entmax_cuda.entmax_plain(
-                x, alpha, 1), PLAIN_REPS, 1),
-            "bound_ms": fbound, "bound_by": fby,
-            "max_abs_err": err["fwd"]}
-        out["bwd"][step] = {
-            "shape": list(shape), "alpha": alpha,
-            "ms": time_ms(lambda: entmax_cuda.entmax_bwd_kernel(
-                y, dy, alpha, 1)),
-            "plain_ms": time_ms(lambda: entmax_cuda.entmax_bwd_plain(
-                y, dy, alpha, 1), PLAIN_REPS, 1),
-            "bound_ms": bbound, "bound_by": bby,
-            "route": entmax_cuda.bwd_route_for(f, c),
-            "blocks_per_sm": entmax_cuda.bwd_blocks_per_sm(f, alpha, c),
-            "max_abs_err": err["bwd"]}
-        for kind in ("fwd", "bwd"):
-            log("kernel_multihead", name=f"entmax_{kind}", step=step,
-                **out[kind][step], checked_c=list(MULTIHEAD_C),
-                checked_f=[39, 43], alphas=list(ALPHAS),
-                max_abs_err_over_c=max(errs[kind]))
-    return out
-
-
 def phase_serve_armnet(tmp, inp):
     """predict at the cr_armnet and cr_armnet+ widths (the ensemble off
     and on) on the serving phase's synthetic file, a cold and a warm
     call: rows, finite scores, one K2 launch per batch and no other (no
     K5), and the first batch's GPU logits against the CPU's."""
-    launches = 0
+    calls = 0
     for name in ("cr_armnet", "cr_armnet+"):
         cfg = flags_config(preset_flags(name))
         ckpt = os.path.join(tmp, f"ckpt_{name}")
         save_checkpoint(create_model(cfg, seed=SEED), cfg, ckpt, "best")
         out = os.path.join(tmp, f"{name}.scores")
         runs = [run_predict(ckpt, inp, out, 10_000) for _ in range(2)]
-        launches += sum(n for _, n in runs)
+        calls += sum(n for _, n in runs)
         err = first_batch_logit_err(ckpt, cfg, inp)
         for i, (s, n) in enumerate(runs):
             log("serve_armnet", preset=name, ensemble=cfg.ensemble,
                 channels=cfg.nattn_head * cfg.h,
                 call="cold" if i == 0 else "warm", rows=s["rows"],
-                batches=s["batches"], entmax_fwd_launches=n,
+                batches=s["batches"], entmax_fwd_calls=n,
                 rows_per_s=s["rows"] / s["score_seconds"],
                 gpu_vs_cpu_logit_err=err)
-    return launches
+    return calls
 
 
 def train_run(tmp, exp, flags, data, split, batch, epochs, want,
               check_auc=None, pinned=True, enforce=True):
     """cli.main of `flags` for `epochs` on {data}/{split} with checkpoints,
-    the counts set to 0 just before: launches equal to `want`, finite step
+    its kernel calls (run_cli) equal to `want`, finite step
     losses whose last epoch's mean is below the first step's, a
     metrics.jsonl row per epoch (and check_auc(rows) where given), then
     one step from the run's checkpoint on the card against the CPU on
@@ -2053,7 +1379,7 @@ def train_run(tmp, exp, flags, data, split, batch, epochs, want,
             str(SEED), "--exp_name", exp, "--log_dir",
             os.path.join(tmp, "log"), "--ckpt_dir",
             os.path.join(tmp, "ckpt"), "--device", "cuda"])
-    check(counts == want, f"{exp} launches {counts}, expected {want}")
+    check(counts == want, f"{exp} calls {counts}, expected {want}")
     ckpt = os.path.join(tmp, "ckpt", f"{exp}_{SEED}")
     cfg = ExperimentConfig(**load_checkpoint(ckpt, "last")[1]["config"])
     bn_routes(exp, cfg, bn_before)
@@ -2115,12 +1441,12 @@ TWO_TABLES = frozenset({"fm", "hofm", "afm", "nfm", "wd", "dfm", "cin",
 
 
 def tables(model, ensemble=False):
-    """K7 launches a train step of `model`: one per table."""
+    """K7's calls a train step of `model`: one per table."""
     return (2 if model in TWO_TABLES else 1) + int(ensemble)
 
 
 def zoo_want(steps, evals, entmax, tables, cin=(0, 0), bns=0):
-    """Launch counts of a run: K2 once per train step and eval batch and K4
+    """Kernel calls of a run: K2 once per train step and eval batch and K4
     once per step where the model has entmax, K7 `tables` times per step,
     K8's forward cin[0] times per step and eval batch and its backward
     cin[1] times per step (cin_want), K9 for `bns` BatchNorms a train step
@@ -2134,11 +1460,10 @@ def zoo_want(steps, evals, entmax, tables, cin=(0, 0), bns=0):
 
 
 def bn_want(steps, bns):
-    """K9's launches in `steps` train steps that each call `bns` BatchNorms
-    on the fused route: a forward and a backward call of each (eval
-    batches take the running statistics on the composed ops)."""
-    return {"bn_fwd": steps * bns * bn_cuda.FWD_CALL_LAUNCHES,
-            "bn_bwd": steps * bns * bn_cuda.BWD_CALL_LAUNCHES}
+    """K9's calls in `steps` train steps that each call `bns` BatchNorms on
+    the fused route: a forward and a backward call of each (eval batches
+    take the running statistics on the composed ops)."""
+    return {"bn_fwd": steps * bns, "bn_bwd": steps * bns}
 
 
 def bn_wide(cfg):
@@ -2152,19 +1477,11 @@ def bn_wide(cfg):
                for m in create_model(cfg).modules())
 
 
-def cin_want(cfg, rows):
-    """(K8 forward launches a batch, its backward launches a train step) of
-    cfg's model on batches of `rows` rows: for cin and xdfm one forward a
-    CIN layer and cin_cuda.bwd_launches of each layer's backward (the same
-    for a ragged last batch of 26 rows or more, whose dW rows are cut as
-    the whole batch's are); (0, 0) for every other model."""
-    if cfg.model not in ("cin", "xdfm"):
-        return 0, 0
-    c, bwd = cfg.nfield, 0
-    for _ in range(cfg.k):
-        bwd += cin_cuda.bwd_launches(rows * cfg.nemb, cfg.nfield, c, cfg.h)
-        c = cfg.h
-    return cfg.k, bwd
+def cin_want(cfg):
+    """(K8 forward calls a batch, its backward calls a train step) of cfg's
+    model: for cin and xdfm one of each a CIN layer; (0, 0) for every other
+    model."""
+    return (cfg.k, cfg.k) if cfg.model in ("cin", "xdfm") else (0, 0)
 
 
 GAP_KEYS = ("loss_rel_gap", "logits_max_abs_gap", "u_kappa", "grad_rtol",
@@ -2182,7 +1499,7 @@ def phase_train_armnet(tmp, data, first):
     steps = 2 * TRAIN_BATCHES
     evals = 2 * 2 * -(-EVAL_ROWS // 4096)
     cut = {k: v[:CPU_ROWS] for k, v in first.items()}
-    totals = dict.fromkeys(read_counts(), 0)
+    totals = dict.fromkeys(kernel_calls(), 0)
     for exp, flags in (
             ("cr_armnet", preset_flags("cr_armnet")),
             ("cr_armnet+", preset_flags("cr_armnet+")),
@@ -2201,7 +1518,7 @@ def phase_train_armnet(tmp, data, first):
             rate = {"warm_rows_per_s": rates, "warm_ms_per_step": ms_step}
         log("train_armnet", run=exp, model=cfg.model, ensemble=ensemble,
             kernels=cfg.kernels, channels=cfg.nattn_head * cfg.h,
-            steps=steps, eval_batches=evals, launches=counts,
+            steps=steps, eval_batches=evals, calls=counts,
             per_step={k: counts[k] / steps for k in counts},
             cli_seconds=seconds, valid_auc=[r["valid"] for r in rows],
             **rate, gpu_vs_cpu={k: gap[k] for k in GAP_KEYS})
@@ -2225,7 +1542,7 @@ def phase_diabetes_armnet(tmp):
             REPO, "data"), "uci_diabetes", first, 3,
         zoo_want(steps, evals, 1, tables("armnet"), bns=1))
     log("diabetes_armnet", recipe="db_armnet", channels=cfg.nattn_head
-        * cfg.h, steps=steps, eval_batches=evals, launches=counts,
+        * cfg.h, steps=steps, eval_batches=evals, calls=counts,
         per_step={k: counts[k] / steps for k in counts}, cli_seconds=seconds,
         valid_auc=[r["valid"] for r in rows],
         test_auc=[r["test"] for r in rows],
@@ -2256,7 +1573,7 @@ FRAPPE_ZOO = {
 def phase_frappe_zoo(tmp):
     """Each FRAPPE_ZOO model with the CLI defaults on data/frappe/ for its
     epochs (train_run; the step against the CPU on the first CPU_ROWS
-    rows): launches (K7 once per table a step, tables; K8's for cin and
+    rows): calls (K7 once per table a step, tables; K8's for cin and
     xdfm, cin_want; no entmax, K5 or K6), valid and test AUC per epoch,
     the best valid AUC at least the JAX package's over the same epochs
     (FRAPPE_ZOO) less 0.02; then predict of the run's best checkpoint on
@@ -2271,7 +1588,7 @@ def phase_frappe_zoo(tmp):
     inp = os.path.join(data, "frappe", "test.libsvm")
     (train, valid, test), first = split_batches("frappe", 10, 4096)
     cut = {k: v[:CPU_ROWS] for k, v in first.items()}
-    totals = dict.fromkeys(read_counts(), 0)
+    totals = dict.fromkeys(kernel_calls(), 0)
 
     for model, (epochs, jax_valid) in FRAPPE_ZOO.items():
         steps, evals = epochs * train, epochs * (valid + test)
@@ -2290,7 +1607,7 @@ def phase_frappe_zoo(tmp):
         hook = torch.nn.modules.module.register_module_forward_pre_hook(
             record)
         flags = ["--model", model, "--batch_size", "4096"]
-        cin = cin_want(flags_config(flags), 4096)
+        cin = cin_want(flags_config(flags))
         try:
             counts, rows, gap, seconds, cfg = train_run(
                 tmp, f"frappe_{model}", flags, data, "frappe", cut, epochs,
@@ -2311,7 +1628,7 @@ def phase_frappe_zoo(tmp):
                 tmp, f"frappe_{model}.scores"), 14430, None, cin[0])
             err = first_batch_logit_err(ckpt, cfg, inp)
         log("frappe_zoo", model=model, steps=steps, eval_batches=evals,
-            launches=counts, per_step={k: counts[k] / steps for k in counts},
+            calls=counts, per_step={k: counts[k] / steps for k in counts},
             cli_seconds=seconds,
             valid_auc=[r["valid"] for r in rows],
             test_auc=[r["test"] for r in rows],
@@ -2342,12 +1659,12 @@ def phase_criteo_zoo(tmp, data, first, inp):
     steps = 2 * TRAIN_BATCHES
     evals = 2 * 2 * -(-EVAL_ROWS // 4096)
     cut = {k: v[:CPU_ROWS] for k, v in first.items()}
-    totals = dict.fromkeys(read_counts(), 0)
+    totals = dict.fromkeys(kernel_calls(), 0)
     for model in ("xdfm", "dfm"):
         exp = f"cr_{model}"
         flags = ["--model", model, "--nfeat", str(CRITEO_NFEAT), "--nfield",
                  "39", "--batch_size", "4096"]
-        cin = cin_want(flags_config(flags), 4096)
+        cin = cin_want(flags_config(flags))
         torch.cuda.reset_peak_memory_stats()
         counts, rows, gap, seconds, cfg = train_run(
             tmp, exp, flags, data, "criteo", cut, 2,
@@ -2366,7 +1683,7 @@ def phase_criteo_zoo(tmp, data, first, inp):
         torch.cuda.empty_cache()
         log("criteo_zoo", model=model, nfeat=cfg.nfeat, nfield=cfg.nfield,
             nemb=cfg.nemb, h=cfg.h, k=cfg.k, steps=steps,
-            eval_batches=evals, launches=counts,
+            eval_batches=evals, calls=counts,
             per_step={k: counts[k] / steps for k in counts},
             cli_seconds=seconds, valid_auc=[r["valid"] for r in rows],
             peak_device_bytes=peak,
@@ -2408,7 +1725,7 @@ def phase_uci_train(tmp):
     [512, 16, 512], K7 into 16 live rows of 5,500) and of armnet_1h under
     pallas-fused (K5 and K6 at 16 fields, alpha 1.7), --batch_size 512
     --valid_perc 0.1
-    (train_run: launches, falling finite losses, one step against the CPU
+    (train_run: calls, falling finite losses, one step against the CPU
     held with the channel-axis-1 BatchNorms pinned, as armnet's steps are;
     armnet_1h's unpinned step logged beside it: on an H100 a ReLU below
     mlp.norms.0 flipped there, mlp.norms.0.bias 3.6e-3 apart at a 16 u
@@ -2421,7 +1738,7 @@ def phase_uci_train(tmp):
     first = next(iter(BatchIterator(train.ds, UCI_BATCH)))
     steps = UCI_EPOCHS * len(train)
     evals = UCI_EPOCHS * (len(valid) + len(test))
-    totals = dict.fromkeys(read_counts(), 0)
+    totals = dict.fromkeys(kernel_calls(), 0)
     for model, kernels in (("armnet", "auto"), ("armnet_1h", "pallas-fused")):
         jax_valid, jax_test, jax_train = UCI_JAX[model]
 
@@ -2449,7 +1766,7 @@ def phase_uci_train(tmp):
               f"UCI run's config {cfg.noutput, cfg.nfield, cfg.nfeat}")
         log("uci_train", model=model, kernels=kernels, rows=UCI_ROWS,
             nfield=cfg.nfield, nclass=cfg.noutput, nfeat=cfg.nfeat,
-            steps=steps, eval_batches=evals, launches=counts,
+            steps=steps, eval_batches=evals, calls=counts,
             per_step={k: counts[k] / steps for k in counts},
             cli_seconds=seconds, train_acc=[r["train"] for r in rows],
             valid_acc=[r["valid"] for r in rows],
@@ -2475,7 +1792,7 @@ BF16_JAX = {("frappe_armnet1h", "auto"): 0.839723,
 
 def phase_bf16(tmp, smi):
     """--bf16 on Frappe: frappe_armnet1h under auto and pallas-fused and
-    frappe_armnet, 2 epochs each (train_run: launches, falling finite
+    frappe_armnet, 2 epochs each (train_run: calls, falling finite
     losses; the step against the CPU with the loss within BF16_LOSS_RTOL
     and the kernels held to their plain versions at their boundary,
     unpinned and pinned), every Embedding's output bfloat16 and the MLP
@@ -2496,7 +1813,7 @@ def phase_bf16(tmp, smi):
     (train, valid, test), first = split_batches("frappe", 10, 4096)
     cut = {k: v[:CPU_ROWS] for k, v in first.items()}
     steps, evals = 2 * train, 2 * (valid + test)
-    totals = dict.fromkeys(read_counts(), 0)
+    totals = dict.fromkeys(kernel_calls(), 0)
     for preset, kernels, head in (
             ("frappe_armnet1h", "auto", torch.float32),
             ("frappe_armnet1h", "pallas-fused", torch.bfloat16),
@@ -2550,7 +1867,7 @@ def phase_bf16(tmp, smi):
         hook = torch.nn.modules.module.register_module_forward_hook(record)
         try:
             with timed("bf16.predict"):
-                scored, score_launches = run_predict(ckpt, inp, out, 14430,
+                scored, score_calls = run_predict(ckpt, inp, out, 14430,
                                                      score_kernel)
         finally:
             hook.remove()
@@ -2587,7 +1904,7 @@ def phase_bf16(tmp, smi):
             del trainer
             torch.cuda.empty_cache()
         log("bf16", preset=preset, kernels=kernels, steps=steps,
-            eval_batches=evals, launches=counts,
+            eval_batches=evals, calls=counts,
             per_step={k: counts[k] / steps for k in counts},
             cli_seconds=seconds, embedding_dtype=str(emb_dtypes),
             mlp_input_dtype=str(head_dtypes),
@@ -2596,14 +1913,14 @@ def phase_bf16(tmp, smi):
             test_auc=[r["test"] for r in rows], f32_valid_auc=f32_valid,
             jax_valid_floor=BF16_JAX[preset, kernels] - 0.02,
             predict_best={"rows": scored["rows"], "auc": scored.get("auc"),
-                          "launches": score_launches,
+                          "calls": score_calls,
                           "vs_bf16_model_max_abs": err},
             against_f32=rate, device=smi,
             gpu_vs_cpu={k: gap[k] for k in GAP_KEYS + (
                 "kernels_at_boundary_max_rel_gap", "pinned") if k in gap})
         for k in totals:
             totals[k] += counts[k] + f32_counts[k]
-        totals[score_kernel] += score_launches
+        totals[score_kernel] += score_calls
     return totals
 
 
@@ -2629,14 +1946,15 @@ def phase_entmax_alpha():
         for device in ("cuda", "cpu"):
             xd = x.to(device, copy=True).requires_grad_()
             ad = alpha.to(device, copy=True).requires_grad_()
-            zero_counts()
+            before = kernel_calls()
             t0 = time.perf_counter()
             y = entmax_bisect(xd, ad, axis=1)
             y.backward(dy.to(device))
             if device == "cuda":
                 torch.cuda.synchronize()
             res[device] = (y.detach().cpu(), xd.grad.cpu(), ad.grad.cpu(),
-                           (time.perf_counter() - t0) * 1e3, read_counts())
+                           (time.perf_counter() - t0) * 1e3,
+                           kernel_calls(before))
         (yg, dxg, dag, ms, counts), (yc, dxc, dac, cpu_ms, _) = (
             res["cuda"], res["cpu"])
         errs = {"y": float((yg - yc).abs().max()),
@@ -2644,11 +1962,11 @@ def phase_entmax_alpha():
                 "dx_rel": float((dxg - dxc).norm() / dxc.norm()),
                 "dalpha_rel": float((dag - dac).norm() / dac.norm())}
         log("entmax_alpha", alpha=kind, shape=list(CRITEO_SHAPE), axis=1,
-            alpha_shape=list(alpha.shape), **errs, launches=counts,
+            alpha_shape=list(alpha.shape), **errs, calls=counts,
             card_ms=ms, cpu_ms=cpu_ms, dalpha_norm=float(dac.norm()),
             tol="y 1e-5 elementwise; dx and dalpha 1e-5 of their norms")
         check(all(v == 0 for v in counts.values()),
-              f"learned-alpha entmax launched kernels: {counts}")
+              f"learned-alpha entmax called kernels: {counts}")
         check(errs["y"] <= 1e-5 and errs["dx_rel"] <= 1e-5
               and errs["dalpha_rel"] <= 1e-5,
               f"learned-alpha entmax, {kind} alpha, card vs CPU: {errs}")
@@ -2765,7 +2083,7 @@ def check_timed(name, rec, keys):
 
 
 def want_per_step(kernels, tables, backward=True):
-    """The port's launches per train step of armnet_1h under `kernels`:
+    """The port's calls per train step of armnet_1h under `kernels`:
     K2 and K4 (auto) or K5 and K6 (pallas-fused), K7 `tables` times and K9
     for arm_bn; without the backward (the breakdown's fwd subset, in eval
     mode) the interaction's forward kernel only, arm_bn on the composed
@@ -2784,7 +2102,7 @@ def phase_bench():
     four variants (--all's, headline last, at the defaults, the others at
     BENCH_SHORT), the step breakdown of armnet_1h under both kernel choices
     and the recipes' --quick rows; every line parses, every time and rate
-    is finite and > 0, and the launches per step are the step's: one K2
+    is finite and > 0, and the calls per step are the step's: one K2
     and one K4 (auto) or one K5 and one K6 (pallas-fused), K7 once a table,
     none in fwd and fwd_bwd_dense, and arm_bn's K9 forward and backward,
     none in fwd (eval mode)."""
@@ -2807,7 +2125,7 @@ def phase_bench():
               f"headline at {rec['reps']} x {rec['steps']}")
         want = want_per_step(kernels, 2 if ensemble else 1)
         check(rec["launches"] == want,
-              f"bench {argv}: launches per step {rec['launches']}, "
+              f"bench {argv}: calls per step {rec['launches']}, "
               f"expected {want}")
     for kernels in ("auto", "pallas-fused"):
         with timed(f"bench.breakdown.{kernels}"):
@@ -2823,7 +2141,7 @@ def phase_bench():
             want = want_per_step(kernels, 0 if dense else 1,
                                  backward=r["subset"] != "fwd")
             check(r["launches"] == want,
-                  f"breakdown {kernels} {r['subset']}: launches per step "
+                  f"breakdown {kernels} {r['subset']}: calls per step "
                   f"{r['launches']}, expected {want}")
     with timed("bench.recipes"):
         lines = harness_lines("armnet_tpu_torch.benchmarks.recipes",
@@ -2837,7 +2155,7 @@ def phase_bench():
                     ("ms_per_step", "examples_per_sec", "min", "max",
                      "device_ms_per_step"))
         check(r["launches"] == want_per_step("auto", 1),
-              f"recipe {r['recipe']}: launches per step {r['launches']}")
+              f"recipe {r['recipe']}: calls per step {r['launches']}")
 
 
 # the benchmark modules' depth in the smoke: one warm call, two timed
@@ -2851,10 +2169,10 @@ MH_ENTMAX_STAGES = ("entmax_fwd", "entmax_bwd", "interaction_fwd",
                     "interaction_fm_bwd")
 
 
-def check_stages(module, rows, names, launches):
+def check_stages(module, rows, names, want_calls):
     """The lines of a stage breakdown: one per stage of `names` in order,
     every time finite and > 0 (the device ms from the profiled repetition
-    too), the launches per call launches(stage)."""
+    too), the kernel calls of each want_calls(stage)."""
     check([r["stage"] for r in rows] == list(names),
           f"{module}: stages {[r['stage'] for r in rows]}")
     for r in rows:
@@ -2863,91 +2181,54 @@ def check_stages(module, rows, names, launches):
         bad = {k: v for k, v in times.items() if not (
             isinstance(v, (int, float)) and math.isfinite(v) and v > 0)}
         check(not bad, f"{module} {r['stage']}: not finite and > 0: {bad}")
-        want = {**dict.fromkeys(read_counts(), 0), **launches(r["stage"])}
-        check(r["launches"] == want, f"{module} {r['stage']}: launches per "
-                                     f"call {r['launches']}, expected {want}")
+        want = {**dict.fromkeys(kernel_calls(), 0), **want_calls(r["stage"])}
+        check(r["launches"] == want, f"{module} {r['stage']}: kernel calls "
+                                     f"{r['launches']}, expected {want}")
 
 
-def last_axis_kernels():
-    """K1 and K3 on the last axis of mh_breakdown's gates [4096, 4, 64, 39]
-    (the (outer, d, inner) = (1048576, 39, 1) view), in this process: its
-    entmax_fwd and entmax_bwd stages launched with the counts set to 0
-    just before and read just after, their outputs held to the plain
-    versions on the card at the kernel phases' tolerances (max abs 5e-6
-    forward and 2e-5 backward, and within KERNELS_VS_PLAIN_RTOL of their
-    norms), then timed beside the plain versions and the bounds. Returns
-    (launches, {"fwd"|"bwd": record})."""
+def last_axis_calls():
+    """mh_breakdown's entmax_fwd and entmax_bwd stages on the last axis of
+    its gates [4096, 4, 64, 39] (K1 and K3 on the (1048576, 39, 1) view),
+    in this process: K1 twice (the backward stage's forward too) and K3
+    once, no other kernel. Returns the calls."""
     from armnet_tpu_torch.benchmarks import mh_breakdown
 
-    inp = mh_breakdown.inputs(device="cuda")
-    stages = dict(mh_breakdown.stages(inp))
-    g0, alpha = inp["gates"], mh_breakdown.ALPHA
-    zero_counts()
-    (y,) = stages["entmax_fwd"]()
-    (dx,) = stages["entmax_bwd"]()
+    stages = dict(mh_breakdown.stages(mh_breakdown.inputs(device="cuda")))
+    before = kernel_calls()
+    stages["entmax_fwd"]()
+    stages["entmax_bwd"]()
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = kernel_calls(before)
     check(counts == {**dict.fromkeys(counts, 0), "entmax_fwd": 2,
                      "entmax_bwd": 1},
-          f"entmax_fwd and entmax_bwd stages launched {counts}")
-    outer, d = math.prod(g0.shape[:-1]), g0.shape[-1]
-    view, numel = [outer, d, 1], g0.numel()
-    recs = {}
-    for kind, got, plain, kernel, tol, (bound_ms, by) in (
-            ("fwd", y, lambda: entmax_cuda.entmax_plain(g0, alpha, -1),
-             lambda: entmax_cuda.entmax_kernel(g0, alpha, -1), 5e-6,
-             entmax_bound_ms(view, alpha)),
-            ("bwd", dx, lambda: entmax_cuda.entmax_bwd_plain(y, g0, alpha,
-                                                              -1),
-             lambda: entmax_cuda.entmax_bwd_kernel(y, g0, alpha, -1), 2e-5,
-             bound(3 * 4 * numel,
-                   entmax_bwd_ops_per_element(alpha) * numel))):
-        want = plain()
-        err = float((got - want).abs().max())
-        check(bool(torch.isfinite(got).all()) and err <= tol
-              and within(got - want, want, KERNELS_VS_PLAIN_RTOL, 0.0),
-              f"entmax_{kind} kernel vs plain on the last axis {view}: max "
-              f"abs err {err} (tol {tol})")
-        recs[kind] = {"shape": view, "alpha": alpha,
-                      "stages": "mh_breakdown entmax_fwd, entmax_bwd",
-                      "launches": counts[f"entmax_{kind}"],
-                      "max_abs_err": err, "tol": tol,
-                      "ms": time_ms(kernel),
-                      "plain_ms": time_ms(plain, PLAIN_REPS, 1),
-                      "bound_ms": bound_ms, "bound_by": by}
-    recs["fwd"]["route"] = entmax_cuda.route_for(d, 1, outer, alpha)
-    recs["fwd"]["blocks_per_sm"] = entmax_cuda.fwd_blocks_per_sm(
-        d, 1, outer, alpha)
-    recs["bwd"]["route"] = entmax_cuda.bwd_route_for(d, 1)
-    recs["bwd"]["blocks_per_sm"] = entmax_cuda.bwd_blocks_per_sm(d, alpha, 1)
-    for kind in recs:
-        log("benchmarks", name=f"entmax_{kind}", last_axis=recs[kind])
-    return counts, recs
+          f"entmax_fwd and entmax_bwd stages called {counts}")
+    log("benchmarks", name="last_axis_stages", calls=counts)
+    return counts
 
 
 def phase_benchmarks():
     """The rest of the harness (armnet_tpu_torch/benchmarks/): K1 and K3 on
-    the last axis held and timed in this process (last_axis_kernels), the
-    table_grad stage of tablegrad_breakdown held to index_add_ on the card;
-    then each module in a fresh process at BENCHMARK_FLAGS' depth:
-    mh_breakdown (every stage, the launches of each), tablegrad_breakdown
+    the last axis in this process (last_axis_calls), the table_grad
+    stage of tablegrad_breakdown held to index_add_ on the card; then each
+    module in a fresh process at BENCHMARK_FLAGS' depth:
+    mh_breakdown (every stage, the calls of each), tablegrad_breakdown
     and tablegrad_prep_bench (K7 once in each table-gradient stage, and the
     split), fastpow_accuracy (the kernel at its compiled budget within
     REL of the newton build's worst at each alpha, the plain solver's (12,
     4) passing), scaling --max_devices 1 (one row) and paired_ab (one A/A
-    pair of the bench at BENCH_SHORT: the ratio). Returns (launches of the
-    in-process stages, the K1/K3 records)."""
+    pair of the bench at BENCH_SHORT: the ratio). Returns the calls of the
+    in-process stages."""
     from armnet_tpu_torch.benchmarks import mh_breakdown, tablegrad_prep_bench
     from armnet_tpu_torch.benchmarks import tablegrad_breakdown as tb
 
     with timed("benchmarks.last_axis"):
-        counts, last_axis = last_axis_kernels()
+        counts = last_axis_calls()
     ids, g = tb.inputs(device="cuda")
-    zero_counts()
+    before = kernel_calls()
     (got,) = dict(tb.stages(ids, g, tb.NROWS))["full"]()
     torch.cuda.synchronize()
-    tg_counts = read_counts()
-    check(tg_counts["table_grad"] == 1, f"full launched {tg_counts}")
+    tg_counts = kernel_calls(before)
+    check(tg_counts["table_grad"] == 1, f"full called {tg_counts}")
     counts = {k: v + tg_counts[k] for k, v in counts.items()}
     card = scatter_cuda.table_grad_plain(g, ids, tb.NROWS)
     spread = scatter_cuda.table_grad_plain(g.abs(), ids, tb.NROWS)
@@ -2955,7 +2236,7 @@ def phase_benchmarks():
     check(bool(((got - card).abs() <= 1e-6 + 1e-5 * spread).all()),
           f"tablegrad full vs index_add_ on the card: max abs err {err}")
     log("benchmarks", name="tablegrad_full", max_abs_err_vs_index_add=err,
-        launches=tg_counts)
+        calls=tg_counts)
     module = "armnet_tpu_torch.benchmarks."
     with timed("benchmarks.mh_breakdown"):
         rows = harness_lines(module + "mh_breakdown", BENCHMARK_FLAGS)
@@ -3005,7 +2286,7 @@ def phase_benchmarks():
     check(len(ab["ratios"]) == 1 and math.isfinite(ab["median_ratio"])
           and ab["median_ratio"] > 0, f"paired_ab A/A: {ab}")
     log("benchmarks_paired_ab", **ab)
-    return counts, last_axis
+    return counts
 
 
 def phase_feeds(data):
@@ -3045,7 +2326,7 @@ def sharded_steps(first):
     make_train_step(mesh) against the replicated step on the same batch
     and weights: loss within 1e-6 relative, K7 once a step (into the
     shard's R = nfeat / 1 rows), arm_bn's K9 once a step (its sums over
-    the one rank). Returns the launches."""
+    the one rank). Returns the calls."""
     import torch.distributed as dist
 
     from armnet_tpu_torch.parallel.mesh import make_mesh
@@ -3063,16 +2344,16 @@ def sharded_steps(first):
         if mesh is not None:
             names = shard_tables(model, mesh, cfg.nfeat, exchange, 2.0)
             check(names == ["embedding.weight"], f"sharded {names}")
-        zero_counts()
+        before = kernel_calls()
         m = make_train_step(mesh=mesh)(create_train_state(model, cfg.lr),
                                        init_meters("cuda"), batch)
         torch.cuda.synchronize()
-        return float(m["loss_last"]), read_counts()
+        return float(m["loss_last"]), kernel_calls(before)
 
     ref, _ = step()
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{free_port()}", rank=0, world_size=1)
-    totals = dict.fromkeys(read_counts(), 0)
+    totals = dict.fromkeys(kernel_calls(), 0)
     try:
         mesh = make_mesh("data:1,model:1")
         for exchange in ("psum", "a2a"):
@@ -3080,11 +2361,11 @@ def sharded_steps(first):
             check(counts == {**dict.fromkeys(counts, 0), "entmax_fwd": 1,
                              "entmax_bwd": 1, "table_grad": 1,
                              **bn_want(1, 1)},
-                  f"{exchange} sharded step launched {counts}")
+                  f"{exchange} sharded step called {counts}")
             check(abs(loss - ref) <= 1e-6 * abs(ref),
                   f"{exchange} sharded step loss {loss} against {ref}")
             log("sharded_step", exchange=exchange, mesh=mesh.shape,
-                loss=loss, replicated_loss=ref, launches=counts)
+                loss=loss, replicated_loss=ref, calls=counts)
             for k in totals:
                 totals[k] += counts[k]
     finally:
@@ -3148,11 +2429,111 @@ def phase_distributed(tmp, data, first):
     log("distributed", command=" ".join(cmd[1:8]) + " ...", steps=2 *
         TRAIN_BATCHES, losses_equal=True, param_max_abs_gap=param_gap,
         logit_max_abs_gap=logit_gap, single_cli_seconds=single_s,
-        torchrun_seconds=torchrun_s, single_launches=counts,
-        sharded_step_launches=sharded)
+        torchrun_seconds=torchrun_s, single_calls=counts,
+        sharded_step_calls=sharded)
     for k in counts:
         counts[k] += sharded[k]
     return counts, sharded
+
+
+def kernel_lines(times, calls, sharded):
+    """The closing summary, a record a kernel: its source and the Pallas
+    function it replaces, its calls over the smoke's runs (`calls`, the
+    ledger's), and its times from phase_kernel_times' records at the
+    cr_armnet1h step, alpha 2 unless said, and at the other steps
+    kernels/bench.py times."""
+    def at(section, **match):
+        return next(r for r in times[section]
+                    if all(r.get(k) == v for k, v in match.items()))
+
+    def keep(rec, *keys):
+        return {k: rec[k] for k in keys}
+
+    src = "armnet_tpu_torch/kernels/csrc/"
+    pallas = "armnet_tpu/kernels/"
+    steps = [name for name, _, _ in bench.ENTMAX_STEPS
+             if name != "armnet_1h"]
+    entmax = []
+    for kind, section, source, line, also in (
+            ("fwd", "entmax", "entmax_fwd.cuh", 151, 40),
+            ("bwd", "entmax_bwd", "entmax_bwd.cu", 159, 53)):
+        name = f"entmax_{kind}"
+        crit = at(section, **{name: list(CRITEO_SHAPE)}, alpha=2.0)
+        entmax.append({
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": f"{pallas}entmax_pallas.py:{line}",
+            "also_replaces": f"{pallas}entmax_pallas.py:{also}",
+            "calls": calls[name],
+            **keep(crit, "ms", "host_incl_ms", "bound_ms", "bound_by",
+                   "max_abs_err"), "kernel_route": crit["route"],
+            "plain_ms": at(section, **{name: "armnet_1h"})["plain_ms"],
+            "library_ms": None, "shape": list(CRITEO_SHAPE), "alpha": 2.0,
+            "ms_by_alpha": {a: at(section, **{name: list(CRITEO_SHAPE)},
+                                  alpha=a)["ms"] for a in bench.ALPHAS},
+            "frappe": at(section, **{name: list(FRAPPE_SHAPE)}, alpha=2.0),
+            "diabetes": at(section, **{name: list(DIABETES_SHAPE)},
+                           alpha=1.7),
+            "d100": at(section, **{name: [512, 100, 128]}, alpha=2.0),
+            **{step: at(section, **{name: step}) for step in steps}})
+    entmax[0]["also_source"] = src + "entmax_fwd_column.cu"
+    tg = {(r["table_grad"], r["e"]): r for r in times["table_grad"]}
+    crit = tg["criteo_batch", 10]
+
+    def tg_keys(r):
+        return {"ms": r["kernel_ms"], "table_grad_ms_with_sort": r["whole_ms"],
+                "host_incl_ms": r["whole_host_incl_ms"],
+                "table_grad_sort_ms": r["sort_ms"], **keep(
+                    r, "bound_ms", "bound_by", "library_ms",
+                    "library_host_incl_ms", "split_by")}
+
+    table_grad = {
+        "name": "table_grad", "route": "cuda", "source": src + "table_grad.cu",
+        "replaces": f"{pallas}scatter_pallas.py:122",
+        "calls": calls["table_grad"],
+        "sharded_step_calls": sharded["table_grad"], **tg_keys(crit),
+        "table_grad_fill_ms": crit["fill_ms"],
+        "table_grad_prep": "folded into the radix sort's first pass",
+        **keep(crit, "torch_prep_ms", "torch_sort_ms"),
+        "all_ids_equal_ms": tg["all_ids_equal", 10]["whole_ms"],
+        "zipf": {k[len("zipf_"):]: {"table_grad_ms": r["whole_ms"],
+                                    "library_ms": r["library_ms"]}
+                 for (k, _), r in tg.items() if k.startswith("zipf_")},
+        "shape": [4096 * 39, 10], "nrows": CRITEO_NFEAT,
+        "zoo_widths": {f"e{e}": {"shape": [4096 * 39, e],
+                                 **tg_keys(tg["criteo_batch", e])}
+                       for e in ZOO_WIDTHS},
+        "uci_16_live": {"shape": [UCI_BATCH * UCI_FIELDS, 10],
+                        "nrows": UCI_NFEAT, "live_rows": UCI_FIELDS,
+                        **tg_keys(tg["uci_16_live", 10])}}
+    arm = [{"name": f"arm1h_{kind}", "route": "cuda", "source": src + source,
+            "also_source": src + col,
+            "replaces": f"{pallas}arm_pallas.py:{line}",
+            "calls": calls[f"arm1h_{kind}"], "library_ms": None,
+            **at("arm", **{f"arm1h_{kind}": "criteo"}, alpha=2.0),
+            "diabetes": at("arm", **{f"arm1h_{kind}": "diabetes"}, alpha=1.7),
+            "uci": at("arm", **{f"arm1h_{kind}": "uci"}, alpha=1.7)}
+           for kind, line, source, col in (
+               ("fwd", 184, "arm1h.cu", "arm1h_col.cu"),
+               ("bwd", 211, "arm1h_bwd.cuh", "arm1h_bwd_col.cu"))]
+    cin = [{"name": f"cin_{kind}", "route": "cuda", "source": src + "cin.cu",
+            "replaces": None,
+            "new": "the JAX package's CIN is XLA ops, with no Pallas kernel",
+            "calls": calls[f"cin_{kind}"], "library_ms": None,
+            **{f"C{c}": next(r for r in times["cin"]
+                             if r.get(f"cin_{kind}", {}).get("C") == c)
+               for c in (200, 39)}}
+           for kind in ("fwd", "bwd")]
+    bn = [{"name": f"bn_{kind}", "route": "cuda",
+           "source": src + "batch_norm.cu", "replaces": None,
+           "new": "the JAX package's BatchNorm is XLA ops, with no Pallas "
+                  "kernel",
+           "calls": calls[f"bn_{kind}"],
+           "library": "F.batch_norm in training mode (cuDNN), which the "
+                      "port never calls",
+           "shapes": {name: at("bn", **{f"bn_{kind}": name})
+                      for name, _ in bench.BN_SHAPES}}
+          for kind in ("fwd", "bwd")]
+    return [*entmax, table_grad, *arm, *cin, *bn]
 
 
 def main():
@@ -3162,21 +2543,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     with timed("build"):
         phase_build()
-    with timed("kernel"):
-        fwd_all = phase_kernel()
-    with timed("kernel_bwd"):
-        bwd_all = phase_kernel_bwd()
-    fwd, bwd = fwd_all[2.0], bwd_all[2.0]         # cr_armnet1h's alpha
-    with timed("kernel_table_grad"):
-        tg = phase_kernel_table_grad()
-    with timed("kernel_arm"):
-        arm = phase_kernel_arm()
-    with timed("kernel_multihead"):
-        mh = phase_kernel_multihead()
-    with timed("kernel_cin"):
-        cin = phase_kernel_cin()
-    with timed("kernel_bn"):
-        bn = phase_kernel_bn()
+    with timed("card_tests"):
+        phase_card_tests()
+    with timed("kernel_times"):
+        times = phase_kernel_times()
     with tempfile.TemporaryDirectory() as tmp:
         # the row cache of every phase's parses lives and dies with tmp
         os.environ["ARMNET_CACHE_DIR"] = os.path.join(tmp, "row_cache")
@@ -3198,7 +2568,7 @@ def main():
         with timed("bench"):
             phase_bench()
         with timed("benchmarks"):
-            bench_counts, last_axis = phase_benchmarks()
+            bench_counts = phase_benchmarks()
             runs.append(bench_counts)
         with timed("feeds"):
             phase_feeds(data)
@@ -3228,143 +2598,11 @@ def main():
     log("seconds", **SECONDS)
     log("profiler", empty_sessions=bench.EMPTY_SESSIONS,
         tries_per_profile=bench.PROFILE_TRIES)
-    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
-    launches["entmax_fwd"] += serve
-    launches["arm1h_fwd"] += serve_fused
-    arm_lines = [
-        {"name": f"arm1h_{kind}", "route": "cuda",
-         "source": f"armnet_tpu_torch/kernels/csrc/{source}",
-         "replaces": f"armnet_tpu/kernels/arm_pallas.py:{line}",
-         "launches": launches[f"arm1h_{kind}"],
-         **arm[(kind, 2.0)], "library_ms": None,
-         "shape": dict(zip("BFEDO", CRITEO_ARM)), "alpha": 2.0,
-         "also_source": f"armnet_tpu_torch/kernels/csrc/{col}",
-         "diabetes": {"shape": dict(zip("BFEDO", DIABETES_ARM)),
-                      "alpha": 1.7, **arm[(kind, 1.7, "diabetes")]},
-         "uci": {"shape": dict(zip("BFEDO", UCI_ARM)), "alpha": 1.7,
-                 **arm[(kind, 1.7, "uci")]}}
-        for kind, line, source, col in (
-            ("fwd", 184, "arm1h.cu", "arm1h_col.cu"),
-            ("bwd", 211, "arm1h_bwd.cuh", "arm1h_bwd_col.cu"))]
-
-    def cin_err(kind, c):
-        errs = cin[("check", c)]["errs"]
-        return max(v for k, v in errs.items() if (k == "out") == (
-            kind == "fwd"))
-
-    cin_lines = [
-        {"name": f"cin_{kind}", "route": "cuda",
-         "source": "armnet_tpu_torch/kernels/csrc/cin.cu",
-         "replaces": None,
-         "new": "the JAX package's CIN is XLA ops, with no Pallas kernel",
-         "launches": launches[f"cin_{kind}"],
-         "max_rel_err": cin_err(kind, 200),
-         "ms": r["time_ms"], "host_incl_ms": r["host_incl_ms"],
-         "plain_ms": r["plain_ms"], "plain_rows": r["plain_rows"],
-         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None, "blocked_ms": r["blocked_ms"],
-         "shape": r[f"cin_{kind}"],
-         "layer0": {k: r0[k] for k in ("time_ms", "plain_ms", "blocked_ms",
-                                       "bound_ms")} | {
-             "shape": r0[f"cin_{kind}"],
-             "max_rel_err": cin_err(kind, 39)}}
-        for kind in ("fwd", "bwd")
-        for r, r0 in ((cin[(kind, 200)], cin[(kind, 39)]),)]
-    bn_lines = [
-        {"name": f"bn_{kind}", "route": "cuda",
-         "source": "armnet_tpu_torch/kernels/csrc/batch_norm.cu",
-         "replaces": None,
-         "new": "the JAX package's BatchNorm is XLA ops, with no Pallas "
-                "kernel",
-         "launches": launches[f"bn_{kind}"],
-         "library": "F.batch_norm in training mode (cuDNN), which the "
-                    "port never calls",
-         "shapes": {name: {k: bn[(kind, name)][k] for k in (
-             "shape", "time_ms", "host_incl_ms", "plain_ms", "composed_ms",
-             "library_ms", "bound_ms", "bound_by", "roofline_pct")} | {
-             "max_rel_gap": max(bn[("check", name)]["rel_gaps"].values())}
-             for name, _ in bench.BN_SHAPES}}
-        for kind in ("fwd", "bwd")]
-    crit, uci = tg["criteo_batch"], tg["uci_16_live"]
-    zipf = {k[len("zipf_"):]: {"table_grad_ms": v["whole_ms"],
-                               "library_ms": v["library_ms"]}
-            for k, v in tg.items() if k.startswith("zipf_")}
-    print(json.dumps({"kernels": [
-        {"name": "entmax_fwd", "route": "cuda",
-         "source": "armnet_tpu_torch/kernels/csrc/entmax_fwd.cuh",
-         "replaces": "armnet_tpu/kernels/entmax_pallas.py:151",
-         "also_replaces": "armnet_tpu/kernels/entmax_pallas.py:40",
-         "launches": launches["entmax_fwd"],
-         "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
-         "host_incl_ms": fwd["host_incl_ms"],
-         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
-         "bound_by": fwd["bound_by"], "library_ms": None,
-         "shape": list(CRITEO_SHAPE), "alpha": 2.0,
-         "bucket": entmax_cuda.route_for(39, 128, 4096, 2.0)[1],
-         "frappe_ms": fwd["frappe_ms"],
-         "frappe_bucket": entmax_cuda.route_for(10, 128, 4096, 2.0)[1],
-         "also_source": "armnet_tpu_torch/kernels/csrc/entmax_fwd_column.cu",
-         "diabetes": {"alpha": 1.7, **fwd_all[1.7]["diabetes"]},
-         "d100": {"alpha": 2.0, **fwd["d100"]}, **mh["fwd"],
-         "last_axis": last_axis["fwd"]},
-        {"name": "entmax_bwd", "route": "cuda",
-         "source": "armnet_tpu_torch/kernels/csrc/entmax_bwd.cu",
-         "replaces": "armnet_tpu/kernels/entmax_pallas.py:159",
-         "also_replaces": "armnet_tpu/kernels/entmax_pallas.py:53",
-         "launches": launches["entmax_bwd"],
-         "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
-         "host_incl_ms": bwd["host_incl_ms"],
-         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
-         "bound_by": bwd["bound_by"], "library_ms": None,
-         "shape": list(CRITEO_SHAPE), "alpha": 2.0,
-         "blocks_per_sm": bwd["blocks_per_sm"],
-         "ms_by_alpha": {a: v["ms"] for a, v in bwd_all.items()},
-         "frappe": {"alpha": 2.0, **bwd["frappe"]},
-         "diabetes": {"alpha": 1.7, **bwd_all[1.7]["diabetes"]},
-         "d100": {"alpha": 2.0, **bwd["d100"]}, **mh["bwd"],
-         "last_axis": last_axis["bwd"]},
-        {"name": "table_grad", "route": "cuda",
-         "source": "armnet_tpu_torch/kernels/csrc/table_grad.cu",
-         "replaces": "armnet_tpu/kernels/scatter_pallas.py:122",
-         "launches": launches["table_grad"],
-         "max_abs_err": tg["max_abs_err"],
-         "max_abs_err_vs_index_add_on_card":
-             tg["max_abs_err_vs_index_add_on_card"], "ms": crit["kernel_ms"],
-         "plain_ms": crit["plain_ms"], "bound_ms": crit["bound_ms"],
-         "bound_by": crit["bound_by"], "library_ms": crit["library_ms"],
-         "table_grad_ms_with_sort": crit["whole_ms"],
-         "sharded_step_launches": sharded["table_grad"],
-         "host_incl_ms": crit["whole_host_incl_ms"],
-         "library_host_incl_ms": crit["library_host_incl_ms"],
-         "table_grad_sort_ms": crit["sort_ms"],
-         "table_grad_fill_ms": crit["fill_ms"],
-         "table_grad_prep_ms": None,
-         "table_grad_prep": "folded into the radix sort's first pass",
-         "torch_prep_ms": crit["torch_prep_ms"],
-         "torch_sort_ms": crit["torch_sort_ms"],
-         "all_ids_equal_ms": tg["all_ids_equal"]["whole_ms"],
-         "zipf": zipf,
-         "shape": [4096 * 39, 10], "nrows": CRITEO_NFEAT,
-         "zoo_widths": {f"e{e}": {
-             "shape": [4096 * 39, e], "ms": w["kernel_ms"],
-             "table_grad_ms_with_sort": w["whole_ms"],
-             "host_incl_ms": w["whole_host_incl_ms"],
-             "table_grad_sort_ms": w["sort_ms"], "plain_ms": w["plain_ms"],
-             "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
-             "library_ms": w["library_ms"],
-             "library_host_incl_ms": w["library_host_incl_ms"]}
-             for e in ZOO_WIDTHS for w in (tg[f"criteo_batch_e{e}"],)},
-         "uci_16_live": {
-             "shape": [UCI_BATCH * UCI_FIELDS, 10], "nrows": UCI_NFEAT,
-             "live_rows": UCI_FIELDS, "ms": uci["kernel_ms"],
-             "table_grad_ms_with_sort": uci["whole_ms"],
-             "host_incl_ms": uci["whole_host_incl_ms"],
-             "table_grad_sort_ms": uci["sort_ms"],
-             "plain_ms": uci["plain_ms"], "bound_ms": uci["bound_ms"],
-             "bound_by": uci["bound_by"], "library_ms": uci["library_ms"],
-             "library_host_incl_ms": uci["library_host_incl_ms"]}},
-        *arm_lines, *cin_lines, *bn_lines,
-    ]}), flush=True)
+    calls = {k: sum(r[k] for r in runs) for k in runs[0]}
+    calls["entmax_fwd"] += serve
+    calls["arm1h_fwd"] += serve_fused
+    print(json.dumps({"kernels": kernel_lines(times, calls, sharded)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -37,6 +37,7 @@ from armnet_tpu_torch.ops.interaction import arm1h_fused, arm1h_interaction
 from armnet_tpu_torch.train import cli
 from armnet_tpu_torch.train.checkpoint import save_checkpoint
 from armnet_tpu_torch.train.step import forward_loss
+from armnet_tpu_torch.utils import tracing
 from armnet_tpu_torch.utils.config import (ExperimentConfig, build_arg_parser,
                                            check_supported)
 from test_torch_armnet1h import (jax_armnet1h, jax_logits, random_batch,
@@ -190,9 +191,9 @@ def test_fused_kernels_refuse_only_past_shared_memory():
 
 def test_fused_dispatch_and_refusals():
     """arm1h_interaction takes the fused path under pallas-fused only, and
-    only for a static alpha > 1; the plain versions count no launch."""
+    only for a static alpha > 1; the plain versions count no kernel call."""
     arrays = [torch.from_numpy(a) for a in _inputs(seed=5)]
-    before = (arm_cuda.LAUNCHES, arm_cuda.BWD_LAUNCHES)
+    before = tracing.counts("armnet.kernel.")
     fused = arm1h_interaction(*arrays, 1.7, kernels="pallas-fused")
     torch.testing.assert_close(fused, arm1h_fused(*arrays, 1.7), rtol=0,
                                atol=0)
@@ -207,7 +208,7 @@ def test_fused_dispatch_and_refusals():
         arm1h_fused(*arrays, 1.0)
     with pytest.raises(ValueError, match="unknown kernel choice"):
         arm1h_interaction(*arrays, 1.7, kernels="triton")
-    assert (arm_cuda.LAUNCHES, arm_cuda.BWD_LAUNCHES) == before
+    assert tracing.counts("armnet.kernel.") == before
     with pytest.raises(ValueError, match="CUDA"):
         arm_cuda.arm1h_fwd_kernel(arrays[0], arrays[1], arrays[2],
                                   arrays[3].t().contiguous(), 1.7)

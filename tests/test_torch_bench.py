@@ -32,10 +32,12 @@ from armnet_tpu.train.step import init_meters as jax_init_meters
 from armnet_tpu.train.step import make_train_step as jax_make_train_step
 from armnet_tpu_torch import bench
 from armnet_tpu_torch.benchmarks import recipes, step_breakdown, timing
+from armnet_tpu_torch.kernels import build
 from armnet_tpu_torch.models import create_model
 from armnet_tpu_torch.models.config import ModelConfig
 from armnet_tpu_torch.train.step import (create_train_state, init_meters,
                                          make_train_step)
+from armnet_tpu_torch.utils import tracing
 from test_torch_train import init_pair, small_kw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -161,6 +163,25 @@ def _subset_after_one_step(name, kernels):
     return model, step
 
 
+def test_kernel_calls_read_the_ledger():
+    """kernel_calls reads each kernel wrapper's calls from the ledger
+    (armnet.kernel.*, no route counter), less an earlier read; the
+    profiled repetition's calls per step are the ledger's over its calls,
+    by the number of calls (on the CPU without a device time)."""
+    before = timing.kernel_calls()
+    assert set(before) == set(build.KERNEL_CALLS)
+    tracing.count("armnet.kernel.table_grad", 3)
+    tracing.count("armnet.kernel.bn_fwd")
+    tracing.count("armnet.bn.fused")
+    none = dict.fromkeys(build.KERNEL_CALLS, 0)
+    assert timing.kernel_calls(before) == {**none, "table_grad": 3,
+                                           "bn_fwd": 1}
+    device_ms, per_step = timing.profile_steps(
+        lambda: tracing.count("armnet.kernel.entmax_fwd", 2), 4, "cpu")
+    assert device_ms is None
+    assert per_step == {**none, "entmax_fwd": 2.0}
+
+
 @pytest.mark.parametrize("kernels", ["auto", "pallas-fused"])
 def test_breakdown_subsets_nest(kernels):
     """fwd leaves no gradient; fwd_bwd_dense gives every parameter but the
@@ -275,12 +296,10 @@ def test_run_on_the_cpu_returns_the_whole_record(kernels):
     assert rec["value"] == pytest.approx(BSZ / rec["step_ms"]["median"]
                                          * 1e3)
     assert rec["kernels"] == kernels and rec["device"] == "cpu"
-    # the CPU: no card, no device time, no kernel launched
+    # the CPU: no card, no device time, no kernel called
     assert rec["card"] == {"before": None, "after": None}
     assert rec["device_ms_per_step"] is None and rec["idle_share"] is None
-    assert set(rec["launches"]) == {"entmax_fwd", "entmax_bwd", "table_grad",
-                                    "arm1h_fwd", "arm1h_bwd", "cin_fwd",
-                                    "cin_bwd", "bn_fwd", "bn_bwd"}
+    assert set(rec["launches"]) == set(build.KERNEL_CALLS)
     assert not any(rec["launches"].values())
     assert np.isfinite(rec["loss_last"])
     assert set(rec["seconds"]) == {"setup", "warm", "card", "timed",

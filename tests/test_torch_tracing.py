@@ -1,7 +1,10 @@
 """The port's spans (armnet_tpu_torch/utils/tracing.py): the no-op with no
 recorder, nesting and ids under one, and the spans of the feed
 (BatchIterator, on its streaming and resident paths) and of the train
-step, which change no batch, meter or parameter. One test needs the card
+step, which change no batch, meter or parameter; the kernels' one launch
+path (kernels/build.launch, with a stand-in for the C entry), the ledger
+of kernel calls it adds to, and the one list of the wrappers that count
+there (build.KERNELS). One test needs the card
 (marked `cuda`; on a GPU machine: `python -m pytest --noconftest -q
 tests/test_torch_tracing.py`): the feed's take spans, or its pin and copy
 spans, and the kernels a step launches, the same with the recorder and
@@ -9,6 +12,11 @@ without.
 """
 
 import contextlib
+import ctypes
+import glob
+import importlib
+import os
+import re
 import threading
 
 import numpy as np
@@ -17,6 +25,7 @@ import torch
 
 from armnet_tpu_torch.data import libsvm
 from armnet_tpu_torch.data.libsvm import BatchIterator
+from armnet_tpu_torch.kernels import build
 from armnet_tpu_torch.models import create_model
 from armnet_tpu_torch.models.config import ModelConfig
 from armnet_tpu_torch.train.step import (create_train_state, init_meters,
@@ -50,6 +59,66 @@ def _names(rec):
 def _epochs(it, n):
     return [[{k: v.clone() for k, v in b.items()} for b in it]
             for _ in range(n)]
+
+
+@pytest.mark.parametrize("call", ["table_grad", None])
+@pytest.mark.parametrize("err", [0, 2, 700])
+def test_launch_raises_on_an_error_and_counts_a_call_only_on_success(
+        monkeypatch, err, call):
+    """build.launch calls the entry with the current stream appended and,
+    where it returns 0, counts `call` once in the ledger (the process's and
+    the recorder's); a non-zero cudaError raises a RuntimeError that names
+    the entry and the error, and counts nothing. A device index of -1
+    makes torch.cuda.device a no-op, so the CPU runs the launch path."""
+    seen = []
+
+    def entry(*args):
+        seen.append(args)
+        return err
+
+    def function(source, name, argtypes):
+        assert (source, name) == ("table_grad", "armnet_fake_entry")
+        assert argtypes == [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        return entry
+
+    monkeypatch.setattr(build, "function", function)
+    monkeypatch.setattr(build, "raw_stream", lambda device: 0xBEEF)
+    before = tracing.counts("armnet.kernel.")
+    with recording() as rec:
+        launch = contextlib.nullcontext() if err == 0 else pytest.raises(
+            RuntimeError, match=f"armnet_fake_entry failed: cudaError {err}")
+        with launch:
+            build.launch("table_grad", "armnet_fake_entry",
+                         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], -1,
+                         1234, 7, call=call)
+    assert seen == [(1234, 7, 0xBEEF)]
+    counted = {} if err or call is None else {f"armnet.kernel.{call}": 1}
+    assert dict(rec.counters) == counted
+    after = tracing.counts("armnet.kernel.")
+    assert {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)} == counted
+
+
+# every call= that a kernel wrapper passes to build.launch
+CALLS_IN_SOURCES = sorted(
+    m for path in glob.glob(os.path.join(os.path.dirname(build.__file__),
+                                         "*.py"))
+    for m in re.findall(r'\bcall="(\w+)"', open(path).read()))
+
+
+@pytest.mark.parametrize("entry", build.KERNELS, ids=build.KERNEL_CALLS)
+def test_kernel_list_names_each_wrapper_and_its_call(entry):
+    """Each entry of build.KERNELS names a wrapper and a plain version of
+    its module, and its call name is passed to build.launch there, once in
+    the kernels' sources; every call name the sources pass is listed, so
+    that what the wrappers count is what kernel_calls and the smoke read."""
+    mod, wrapper, plain, call = entry
+    module = importlib.import_module(f"armnet_tpu_torch.kernels.{mod}")
+    assert callable(getattr(module, wrapper))
+    assert callable(getattr(module, plain))
+    assert f'call="{call}"' in open(module.__file__).read()
+    assert CALLS_IN_SOURCES.count(call) == 1
+    assert CALLS_IN_SOURCES == sorted(build.KERNEL_CALLS)
 
 
 def test_no_recorder_returns_the_shared_no_op():

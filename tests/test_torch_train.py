@@ -52,6 +52,7 @@ from armnet_tpu_torch.train.loop import Trainer
 from armnet_tpu_torch.train.metrics import masked_bce, masked_softmax_ce
 from armnet_tpu_torch.train.step import (create_train_state, forward_loss,
                                          init_meters, make_train_step)
+from armnet_tpu_torch.utils import tracing
 from armnet_tpu_torch.utils.config import ExperimentConfig, build_arg_parser
 
 NFIELD, NFEAT, NEMB, BSZ = 5, 600, 4, 64
@@ -432,6 +433,51 @@ def _record_losses(trainer, out):
         return meters
 
     trainer.train_step = wrapped
+
+
+def test_fit_logs_one_line_of_the_counters_that_moved(tmp_path):
+    """A fit ends with one line of every armnet.* counter that moved during
+    it, each as its difference over the fit: on the CPU the BatchNorms'
+    composed route, and here a kernel call that a wrapped train step counts
+    once a step. A counter that did not move during the fit is left out,
+    and no op has a line of its own."""
+    write_split(str(tmp_path / "d"), seed=2)
+    cfg = ExperimentConfig(**small_kw(), lr=0.01, batch_size=BSZ,
+                           device="cpu")
+    messages = []
+    logger = logging.getLogger("test_torch_train.counters")
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    logger.addHandler(handler)
+    t = Trainer(cfg, *make_dataloaders("d", str(tmp_path), NFIELD, BSZ,
+                                       seed=3), logger, seed=3)
+    steps = []
+    _record_losses(t, steps)
+    step = t.train_step
+
+    def counted(*args):
+        tracing.count("armnet.kernel.table_grad")
+        return step(*args)
+
+    t.train_step = counted
+    tracing.count("armnet.kernel.cin_fwd")      # before the fit: not logged
+    before = tracing.counts("armnet.")
+    try:
+        t.fit(2, patience=5, report_freq=100)
+    finally:
+        logger.removeHandler(handler)
+    moved = {k: v - before.get(k, 0)
+             for k, v in tracing.counts("armnet.").items()
+             if v != before.get(k, 0)}
+    assert moved["armnet.kernel.table_grad"] == len(steps) == 6
+    assert moved["armnet.bn.composed"] > 0
+    assert "armnet.kernel.cin_fwd" not in moved
+    lines = [m for m in messages if m.startswith("counters:")]
+    assert lines == [f"counters: what ran during the fit (kernel calls, "
+                     f"routes) {dict(sorted(moved.items()))}"]
+    assert not [m for m in messages if m.startswith(("cin:", "bn:"))]
 
 
 def test_resume_continues_the_loss_curve(tmp_path, quiet_logger):
